@@ -1,5 +1,5 @@
 """NumPy oracle: faithful re-statement of the reference's postprocess
-semantics, used as the golden standard for the TPU kernels.
+semantics, used as the golden standard for the device kernels.
 
 This replaces the reference's screenshot-comparison "test" (SURVEY.md §4.1)
 with executable checks. Each function mirrors the behaviour documented in

@@ -16,11 +16,11 @@ import jax.numpy as jnp
 
 cv2 = pytest.importorskip("cv2")
 
-from spsvo_tpu.ops import matching
-from spsvo_tpu.ops.akaze import (MLDB_BITS, _diffusion_step, _fed_tau_steps,
+from spsvo.ops import matching
+from spsvo.ops.akaze import (MLDB_BITS, _diffusion_step, _fed_tau_steps,
                                  _mldb_tables, akaze_features,
                                  mldb_descriptors, nonlinear_scale_space)
-from spsvo_tpu.ops.orb import gaussian_blur
+from spsvo.ops.orb import gaussian_blur
 
 
 def _real_image(sample_image_dir, idx=0, hw=None):
@@ -182,9 +182,9 @@ def test_akaze_hybrid_corridor_drive(rng):
     edition)."""
     import dataclasses
 
-    from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
-    from spsvo_tpu.eval import harness
-    from spsvo_tpu.eval.synthetic import score_trajectory, synthetic_corridor
+    from spsvo.config import DescriptorType, DetectorType, VOConfig
+    from spsvo.eval import harness
+    from spsvo.eval.synthetic import score_trajectory, synthetic_corridor
 
     frames, gt, P_l, P_r = synthetic_corridor(
         rng, n_frames=8, h=150, w=496, yaw_rate=0.008,
@@ -208,7 +208,7 @@ def test_akaze_sweep_row_config():
     native resolution with the device tag in its config string (C7
     closure — previously AKAZE was the one reference config with no
     engine at all)."""
-    from spsvo_tpu.config import (DescriptorType, DetectorType,
+    from spsvo.config import (DescriptorType, DetectorType,
                                   classic_sweep_configs)
 
     rows = [c for c in classic_sweep_configs()
@@ -217,7 +217,7 @@ def test_akaze_sweep_row_config():
     cfg = rows[0]
     assert cfg.device_classic
     assert cfg.descriptor_type == DescriptorType.AKAZE
-    assert cfg.config_string.startswith("orbtpu_AKAZE_AKAZE")
-    from spsvo_tpu.ops.orb import frontend_kwargs
+    assert cfg.config_string.startswith("orbdev_AKAZE_AKAZE")
+    from spsvo.ops.orb import frontend_kwargs
     kw = frontend_kwargs(cfg)
     assert kw["detector"] == "akaze" and kw["descriptor"] == "mldb"

@@ -1,10 +1,10 @@
-"""Classic (OpenCV) front end behind the TPU geometry path."""
+"""Classic (OpenCV) front end behind the device geometry path."""
 import numpy as np
 import pytest
 
-from spsvo_tpu.config import (DescriptorType, DetectorType, SelectorType,
+from spsvo.config import (DescriptorType, DetectorType, SelectorType,
                               VOConfig)
-from spsvo_tpu.frontend_classic import ClassicVisualOdometry
+from spsvo.frontend_classic import ClassicVisualOdometry
 
 
 def _textured(rng, h=375, w=1242):
@@ -53,11 +53,11 @@ def test_classic_sift_float_descriptors(rng):
 
 
 def test_hamming_matches_cv2_on_orb(rng):
-    """TPU bit-matmul Hamming == cv2 BFMatcher NORM_HAMMING on real ORB
+    """Device bit-matmul Hamming == cv2 BFMatcher NORM_HAMMING on real ORB
     descriptors."""
     import cv2
     import jax.numpy as jnp
-    from spsvo_tpu.ops import matching
+    from spsvo.ops import matching
     img = _textured(rng, 240, 320)
     orb = cv2.ORB_create(nfeatures=300)
     kps, desc = orb.detectAndCompute(img, None)
@@ -83,7 +83,7 @@ def test_hamming_matches_cv2_on_orb(rng):
 @pytest.mark.slow
 def test_classic_fused_matches_per_frame(rng):
     """The classic fused mode (host-detect-all + one feature-hybrid device
-    program, VERDICT r2 weak #5) must reproduce the per-frame
+    program) must reproduce the per-frame
     ClassicVisualOdometry trajectory: identical (deterministic) OpenCV
     features, same geometry math — differences only from RANSAC draws.
     ORB's integer-pixel corners make those draws noisy: per-frame runs with
@@ -93,7 +93,7 @@ def test_classic_fused_matches_per_frame(rng):
     sys.path.insert(0, os.path.dirname(__file__))
     from test_pipeline import _synthetic_sequence
 
-    from spsvo_tpu.eval.harness import run_sequence_fused
+    from spsvo.eval.harness import run_sequence_fused
 
     cfg = VOConfig(is_classic=True, detector_type=DetectorType.ORB,
                    descriptor_type=DescriptorType.ORB,
@@ -113,8 +113,8 @@ def test_classic_fused_matches_per_frame(rng):
 
 
 def test_classic_fused_rejects_cnn_config():
-    from spsvo_tpu.eval.harness import run_sequence_fused
-    cfg = VOConfig(model_name_prefix="sp_mbv1")
+    from spsvo.eval.harness import run_sequence_fused
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained")
     img = np.zeros((64, 64), np.uint8)
     with pytest.raises(ValueError, match="classic"):
         run_sequence_fused(cfg, [(img, img)] * 4, np.eye(3, 4), np.eye(3, 4),
@@ -126,7 +126,7 @@ def test_unpack_binary_desc_matches_np_unpackbits(rng):
     first) so Hamming-as-matmul sees the same bit-vectors the host-unpacked
     path produced."""
     import jax.numpy as jnp
-    from spsvo_tpu.frontend_classic import unpack_binary_desc
+    from spsvo.frontend_classic import unpack_binary_desc
 
     d = rng.integers(0, 256, size=(5, 7, 32), dtype=np.uint8)
     got = np.asarray(unpack_binary_desc(jnp.asarray(d)))
@@ -142,8 +142,8 @@ def test_classic_process_instrumented_matches_process(sample_image_dir):
 
     import cv2
 
-    from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
-    from spsvo_tpu.frontend_classic import ClassicVisualOdometry
+    from spsvo.config import DescriptorType, DetectorType, VOConfig
+    from spsvo.frontend_classic import ClassicVisualOdometry
 
     files = sorted(os.listdir(sample_image_dir))[:3]
     imgs = [cv2.imread(os.path.join(sample_image_dir, f),

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from spsvo_tpu import distill as D
+from spsvo import distill as D
 
 
 def test_augment_batch_shapes_and_range(rng):

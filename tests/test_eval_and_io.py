@@ -5,11 +5,11 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation
 
-from spsvo_tpu import presets
-from spsvo_tpu.config import DetectorType, Precision, VOConfig, sweep_configs
-from spsvo_tpu.eval import metrics
-from spsvo_tpu.io import kitti
-from spsvo_tpu.utils.logging import RuntimeGuards
+from spsvo import presets
+from spsvo.config import DetectorType, Precision, VOConfig, sweep_configs
+from spsvo.eval import metrics
+from spsvo.io import kitti
+from spsvo.utils.logging import RuntimeGuards
 
 
 def _straight_trajectory(n, step=1.0):
@@ -113,20 +113,19 @@ def test_presets_cover_launch_matrix():
 
 
 def test_flagship_preset_is_the_measured_composition():
-    """The flagship composition was decided by the round-5 cross-scene
-    matrix (docs/accuracy_matrix.json: bf16_lm_mbf16 = 2075 FPS at
-    better-than-fp32 accuracy on every statistic). Pin it so the preset,
-    __graft_entry__.entry() and the bench headline can't silently drift
-    apart from the measured decision."""
-    f = presets.flagship_tpu()
+    """Pin the flagship composition so the preset, __graft_entry__.entry(),
+    chip_smoke.py and the bench headline can't silently drift apart."""
+    f = presets.flagship()
     assert f.precision == Precision.BF16          # bf16 CNN trunk
     assert f.landmark_fusion                      # carried fused landmarks
     assert f.matcher_bf16                         # bf16 descriptor matmuls
-    # the fused-Pallas-solver-eligible sequential tuning
+    # the fused-solver-eligible sequential tuning
     assert (f.ransac_chunk, f.lm_unroll, f.solve_slots) == (0, 6, 128)
-    assert f.use_pallas_matcher and f.use_pallas_solver
+    assert f.use_pallas_solver
     assert (f.model_name_prefix, f.model_batch_size,
-            f.image_height, f.image_width) == ("sp_mbv1", 2, 120, 392)
+            f.image_height, f.image_width) == (
+                "superpoint_pretrained", 2, 120, 392)
+    assert (f.max_keypoints, f.ransac_iterations) == (512, 256)
 
 
 def test_sweep_grid_size():
@@ -136,17 +135,16 @@ def test_sweep_grid_size():
 
 
 def test_full_sweep_grid_is_82_rows():
-    """The committed docs/sweep_results.json artifact is the full grid:
-    72 NN + 6 classic (4 host cv2 + device BRISK/AKAZE) + 4 device-classic
-    extras — 82 unique config strings (run by tools/run_sweep_tpu.py)."""
-    from spsvo_tpu.config import (classic_sweep_configs,
+    """The full sweep grid: 72 NN + 6 classic (4 host cv2 + device
+    BRISK/AKAZE) + 4 device-classic extras — 82 unique config strings."""
+    from spsvo.config import (classic_sweep_configs,
                                   device_classic_sweep_configs)
     cfgs = (sweep_configs() + classic_sweep_configs()
             + device_classic_sweep_configs())
     names = [c.config_string for c in cfgs]
     assert len(names) == 82 and len(set(names)) == 82
-    # the device-substituted classic rows carry the orbtpu basis tag
-    assert sum(n.startswith("orbtpu_") for n in names) == 6
+    # the device-substituted classic rows carry the orbdev basis tag
+    assert sum(n.startswith("orbdev_") for n in names) == 6
 
 
 def test_runtime_guards():
@@ -160,7 +158,7 @@ def test_runtime_guards():
 
 
 def test_viz_renders(rng):
-    from spsvo_tpu import viz
+    from spsvo import viz
     img = (rng.random((120, 392)) * 255).astype(np.uint8)
     xy0 = rng.uniform(0, 100, (30, 2)).astype(np.float32)
     xy1 = rng.uniform(0, 100, (30, 2)).astype(np.float32)
@@ -176,8 +174,8 @@ def test_viz_renders(rng):
 
 
 def test_latency_trace(tmp_path):
-    from spsvo_tpu.utils.profiling import LatencyTrace
-    tr = LatencyTrace(str(tmp_path), "tpu", "sp_mbv1_2_120_392_FP32",
+    from spsvo.utils.profiling import LatencyTrace
+    tr = LatencyTrace(str(tmp_path), "device", "sp_mbv1_2_120_392_FP32",
                       "seq_0")
     tr.add(detect=1.0, match=2.0, solve=3.0, total=6.0)
     tr.add(total=5.0)
@@ -191,9 +189,9 @@ def test_latency_trace(tmp_path):
 def test_train_state_checkpoint_roundtrip(tmp_path):
     import jax
 
-    from spsvo_tpu.models import zoo
-    from spsvo_tpu.training import init_train_state
-    from spsvo_tpu.utils.checkpoint import (restore_train_state,
+    from spsvo.models import zoo
+    from spsvo.training import init_train_state
+    from spsvo.utils.checkpoint import (restore_train_state,
                                             save_train_state)
     apply_fn, params = zoo.load_model("sp_resnet18", seed=1)
     state = init_train_state(apply_fn, params)

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation
 
-from spsvo_tpu.geometry import se3
-from spsvo_tpu.ops import lm, pnp
-from spsvo_tpu.ops.triangulation import project, triangulate
+from spsvo.geometry import se3
+from spsvo.ops import lm, pnp
+from spsvo.ops.triangulation import project, triangulate
 
 P_L = np.array([[718.856, 0, 607.1928, 0.0],
                 [0, 718.856, 185.2157, 0.0],
@@ -260,7 +260,7 @@ def test_ransac_adaptive_quality_with_outliers(rng):
 def test_analytic_jacobian_matches_jacfwd(rng):
     """lm._residuals_and_jac's closed-form Jacobian must equal forward-mode
     AD through quat_boxplus at the same linearisation point."""
-    from spsvo_tpu.ops.lm import _residuals, _residuals_and_jac
+    from spsvo.ops.lm import _residuals, _residuals_and_jac
     data, R, t = _vo_frame(rng, n=40, k_pad=40, noise=0.2)
     q = Rotation.from_matrix(R).as_quat().astype(np.float32)
     q = jnp.asarray(q); tv = jnp.asarray(t, jnp.float32)
@@ -285,7 +285,7 @@ def test_analytic_jacobian_matches_jacfwd(rng):
 
 
 def _prepared_from_frame(data):
-    from spsvo_tpu.ops.solver import PreparedSolve
+    from spsvo.ops.solver import PreparedSolve
     chain = jnp.asarray(data["valid"])
     k = chain.shape[0]
     return PreparedSolve(
@@ -305,10 +305,10 @@ def test_speculative_solve_matches_solve_prepared(rng):
     prior-lane compare) must reproduce solve_prepared exactly, in BOTH
     branches: prior loses (identity prior vs real motion) and prior wins
     (true-pose prior beats every noisy 3-point hypothesis)."""
-    from spsvo_tpu.config import VOConfig
-    from spsvo_tpu.ops import solver
+    from spsvo.config import VOConfig
+    from spsvo.ops import solver
 
-    cfg = VOConfig(model_name_prefix="sp_mbv1", ransac_iterations=64,
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", ransac_iterations=64,
                    ransac_chunk=0, lm_unroll=6, solve_slots=0)
     data, R, t = _vo_frame(rng, n=250, outlier_frac=0.15, k_pad=512)
     prep = _prepared_from_frame(data)
@@ -321,7 +321,7 @@ def test_speculative_solve_matches_solve_prepared(rng):
     t_id = jnp.zeros(3, jnp.float32)
 
     spec = solver.precompute_speculative(key, prep, P_l, P_r, cfg)
-    import spsvo_tpu.ops.pnp as pnp_mod
+    import spsvo.ops.pnp as pnp_mod
     thr2 = cfg.ransac_reproj_threshold ** 2
 
     for q_pred, t_pred, want_prior_wins in (

@@ -5,15 +5,15 @@ import os
 import numpy as np
 import pytest
 
-from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
-from spsvo_tpu.eval import harness
+from spsvo.config import DescriptorType, DetectorType, VOConfig
+from spsvo.eval import harness
 
 
 class _StubVO:
     """Minimal pipeline stand-in: constant forward motion."""
 
     def __init__(self):
-        self.cfg = VOConfig(model_name_prefix="sp_mbv1", max_keypoints=64)
+        self.cfg = VOConfig(model_name_prefix="superpoint_pretrained", max_keypoints=64)
         self.reset()
 
     def reset(self):
@@ -42,7 +42,7 @@ def test_run_sequence_writes_artifacts(tmp_path):
     res = harness.run_sequence(
         vo, _frames(6), P, P, results_dir=str(tmp_path / "kitti_results"),
         description="unit", kitti_eval_id=5,
-        latency_dir=str(tmp_path / "lat"), machine_name="tpu",
+        latency_dir=str(tmp_path / "lat"), machine_name="device",
         sequence_tag="seq_5")
     # pose file: reference naming 05_pred.txt, 12 numbers per line
     pose_file = tmp_path / "kitti_results" / "unit" / "05_pred.txt"
@@ -54,7 +54,7 @@ def test_run_sequence_writes_artifacts(tmp_path):
     last = np.array([float(v) for v in lines[-1].split()]).reshape(3, 4)
     assert last[2, 3] == 5.0
     # latency CSV naming contract {config}_{tag}.csv under machine dir
-    csv = tmp_path / "lat" / "tpu" / f"{vo.cfg.config_string}_seq_5.csv"
+    csv = tmp_path / "lat" / "device" / f"{vo.cfg.config_string}_seq_5.csv"
     assert csv.exists()
     assert csv.read_text().splitlines()[0] == "detect,match,solve,total"
     assert res.fps > 0
@@ -63,7 +63,7 @@ def test_run_sequence_writes_artifacts(tmp_path):
 def test_run_sequence_guards_flag_starvation(capsys):
     """A starving sequence (few keypoints/matches) must trip the reference's
     runtime warnings (feature_detection_base.cpp:453-457, :496-499) and count
-    the violations in SequenceResult.guards_summary (VERDICT r2 weak #4)."""
+    the violations in SequenceResult.guards_summary."""
     class _StarvingVO(_StubVO):
         def process(self, il, ir, P_l, P_r, want_diagnostics=False):
             T, info = super().process(il, ir, P_l, P_r, want_diagnostics)
@@ -124,8 +124,7 @@ def test_run_sequence_guards_quiet_when_healthy():
 def test_run_sequence_guards_flag_chain_truncation(capsys):
     """`solve_slots` dropping valid chain matches must be audible: the
     chain_truncated diagnostic trips the chain-capacity guard and the count
-    lands in guards_summary (VERDICT r2 weak #7 — previously the flag was
-    surfaced but nothing warned)."""
+    lands in guards_summary."""
     class _RichVO(_StubVO):
         def process(self, il, ir, P_l, P_r, want_diagnostics=False):
             T, info = super().process(il, ir, P_l, P_r, want_diagnostics)
@@ -146,12 +145,12 @@ def test_run_sequence_guards_flag_chain_truncation(capsys):
 def test_fused_hybrid_feeds_chain_capacity_guard(rng):
     """The fused modes surface `chain_truncated` per pair, so a solve_slots
     too small for the scene trips the chain-capacity guard through
-    run_sequence_fused as well (VERDICT r2 weak #7)."""
-    from spsvo_tpu.eval.synthetic import synthetic_drive
+    run_sequence_fused as well."""
+    from spsvo.eval.synthetic import synthetic_drive
 
     frames, _, P_l, P_r = synthetic_drive(rng, n_frames=4, h=96, w=192,
                                           forward_per_frame=0.1)
-    cfg = VOConfig(model_name_prefix="sp_mbv1", image_height=48,
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", image_height=48,
                    image_width=96, max_keypoints=128, ransac_iterations=32,
                    conf_thresh=0.001, solve_slots=4)
     res = harness.run_sequence_fused(cfg, frames, P_l, P_r, mode="hybrid")
@@ -162,7 +161,7 @@ def test_fused_hybrid_feeds_chain_capacity_guard(rng):
 
 
 def test_score_against_ground_truth(tmp_path):
-    from spsvo_tpu.io import kitti
+    from spsvo.io import kitti
     poses = []
     T = np.eye(4)
     for i in range(50):
@@ -192,7 +191,7 @@ def test_run_sweep_records_errors_and_results(tmp_path, monkeypatch):
             diagnostics=[], config_string=cfg.config_string)
 
     monkeypatch.setattr(harness, "run_sequence_fused", fake_fused)
-    cfgs = [VOConfig(model_name_prefix="sp_mbv1", max_keypoints=64),
+    cfgs = [VOConfig(model_name_prefix="superpoint_pretrained", max_keypoints=64),
             VOConfig(model_name_prefix="sp_mbv2", max_keypoints=64),
             VOConfig(is_classic=True, max_keypoints=64),
             VOConfig(is_classic=True, device_classic=True,
@@ -217,34 +216,34 @@ def test_run_sweep_records_errors_and_results(tmp_path, monkeypatch):
 def test_run_sweep_records_model_load_failure(tmp_path, monkeypatch):
     """Error injection through the REAL run_sequence_fused: a config whose
     model load raises must land as an error row, exercising the new
-    try/except around the fused path (VERDICT r4 item 1a)."""
-    from spsvo_tpu.models import zoo
+    try/except around the fused path."""
+    from spsvo.models import zoo
 
     def boom_load(prefix, *a, **k):
         raise FileNotFoundError(f"no weights for {prefix}")
 
     monkeypatch.setattr(zoo, "load_model", boom_load)
-    cfg = VOConfig(model_name_prefix="sp_mbv1", image_height=16,
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", image_height=16,
                    image_width=32, max_keypoints=64)
     out_json = str(tmp_path / "sweep.json")
     P = np.eye(3, 4)
     results = harness.run_sweep(lambda: _frames(3), P, P, configs=[cfg],
                                 out_json=out_json, max_frames=3)
     assert len(results) == 1
-    assert "no weights for sp_mbv1" in results[0]["error"]
+    assert "no weights for superpoint_pretrained" in results[0]["error"]
     assert json.load(open(out_json)) == results
 
 
 def test_cli_compile_sweep_filter_no_match(capsys):
-    from spsvo_tpu import run as run_mod
+    from spsvo import run as run_mod
     rc = run_mod.main(["--compile-sweep", "--filter", "no_such_config"])
     assert rc == 0
     assert "0 compiled" in capsys.readouterr().out
 
 
 def test_cli_requires_data_source(capsys):
-    from spsvo_tpu import run as run_mod
-    rc = run_mod.main(["--preset", "flagship_tpu"])
+    from spsvo import run as run_mod
+    rc = run_mod.main(["--preset", "flagship"])
     assert rc == 2
 
 
@@ -252,9 +251,9 @@ def test_cli_landmark_fusion_rejects_independent_modes(capsys):
     """--landmark-fusion needs the sequential prior chain; the batch and
     classic modes solve frames independently and would silently produce
     baseline (re-triangulating) results mislabeled as a landmark run."""
-    from spsvo_tpu import run as run_mod
+    from spsvo import run as run_mod
     rc = run_mod.main(["--mode", "batch", "--landmark-fusion",
-                       "--sample-images"])
+                       "--synthetic"])
     assert rc == 2
     assert "landmark-fusion" in capsys.readouterr().err
 
@@ -263,10 +262,10 @@ def test_cli_landmark_fusion_rejects_independent_modes(capsys):
 def test_run_sweep_accuracy_columns(tmp_path):
     """With ground-truth poses, sweep rows carry ATE/drift/RPE next to FPS
     (the reference's accuracy-vs-config study, report §4.2)."""
-    from spsvo_tpu.eval.synthetic import synthetic_drive
+    from spsvo.eval.synthetic import synthetic_drive
     rng = np.random.default_rng(3)
     frames, poses, P_l, P_r = synthetic_drive(rng, n_frames=5)
-    cfgs = [VOConfig(model_name_prefix="sp_mbv1", conf_thresh=0.005,
+    cfgs = [VOConfig(model_name_prefix="superpoint_pretrained", conf_thresh=0.005,
                      ransac_iterations=64, max_keypoints=128)]
     out = str(tmp_path / "sweep.json")
     rows = harness.run_sweep(lambda: list(frames), P_l, P_r, configs=cfgs,
@@ -285,10 +284,10 @@ def test_run_eval_id_on_fake_kitti_tree(tmp_path):
     and the poses must score well against the synthetic ground truth."""
     import cv2
 
-    from spsvo_tpu.eval import metrics
-    from spsvo_tpu.eval.synthetic import synthetic_drive
-    from spsvo_tpu.io import kitti
-    from spsvo_tpu.pipeline import VisualOdometry
+    from spsvo.eval import metrics
+    from spsvo.eval.synthetic import synthetic_drive
+    from spsvo.io import kitti
+    from spsvo.pipeline import VisualOdometry
 
     rng = np.random.default_rng(11)
     frames, poses, P_l, P_r = synthetic_drive(rng, n_frames=6)
@@ -305,7 +304,7 @@ def test_run_eval_id_on_fake_kitti_tree(tmp_path):
     gt_file = tmp_path / "00_gt.txt"
     kitti.write_kitti_poses(str(gt_file), poses)
 
-    cfg = VOConfig(model_name_prefix="sp_mbv1", conf_thresh=0.005,
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", conf_thresh=0.005,
                    ransac_iterations=64, max_keypoints=128)
     vo = VisualOdometry(cfg)
     res = harness.run_eval_id(
@@ -325,7 +324,7 @@ def test_run_eval_id_on_fake_kitti_tree(tmp_path):
 
 
 def test_classic_sweep_configs_enumeration():
-    from spsvo_tpu.config import classic_sweep_configs
+    from spsvo.config import classic_sweep_configs
     cfgs = classic_sweep_configs()
     assert len(cfgs) == 6  # report §4.1.2: 72 NN + 6 classic = 78
     assert all(c.is_classic for c in cfgs)
@@ -337,8 +336,8 @@ def test_run_sweep_classic_config(tmp_path, rng):
     """run_sweep must route classic configs through the OpenCV front end."""
     import dataclasses as dc
 
-    from spsvo_tpu.config import classic_sweep_configs
-    from spsvo_tpu.eval.synthetic import synthetic_drive
+    from spsvo.config import classic_sweep_configs
+    from spsvo.eval.synthetic import synthetic_drive
     rng2 = np.random.default_rng(5)
     frames, poses, P_l, P_r = synthetic_drive(rng2, n_frames=4)
     cfg = dc.replace(classic_sweep_configs()[0], max_keypoints=256,
@@ -357,9 +356,9 @@ def test_run_eval_id_fused_modes_on_fake_kitti_tree(tmp_path):
     8-device virtual mesh)."""
     import cv2
 
-    from spsvo_tpu.eval.synthetic import synthetic_drive
-    from spsvo_tpu.io import kitti
-    from spsvo_tpu.pipeline import VisualOdometry
+    from spsvo.eval.synthetic import synthetic_drive
+    from spsvo.io import kitti
+    from spsvo.pipeline import VisualOdometry
 
     rng = np.random.default_rng(11)
     frames, poses, P_l, P_r = synthetic_drive(rng, n_frames=6)
@@ -376,7 +375,7 @@ def test_run_eval_id_fused_modes_on_fake_kitti_tree(tmp_path):
     gt_file = tmp_path / "00_gt.txt"
     kitti.write_kitti_poses(str(gt_file), poses)
 
-    cfg = VOConfig(model_name_prefix="sp_mbv1", conf_thresh=0.005,
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", conf_thresh=0.005,
                    ransac_iterations=64, max_keypoints=128)
     vo = VisualOdometry(cfg)
     for mode in ("hybrid", "batch"):
@@ -402,8 +401,8 @@ def test_run_sequence_fused_rejects_classic():
 
 def test_run_sequence_viz_stream(tmp_path):
     """viz_dir streams the reference's per-frame match/inlier images
-    (visual_odometry_node.cpp:200-244) as PNGs (VERDICT r2 missing #4)."""
-    from spsvo_tpu.pipeline import VOStepOutput
+    (visual_odometry_node.cpp:200-244) as PNGs."""
+    from spsvo.pipeline import VOStepOutput
     import jax.numpy as jnp
 
     K = 8
@@ -411,7 +410,7 @@ def test_run_sequence_viz_stream(tmp_path):
     class _VizVO(_StubVO):
         def process(self, il, ir, P_l, P_r, want_diagnostics=False):
             T, info = super().process(il, ir, P_l, P_r, want_diagnostics)
-            from spsvo_tpu.ops.postprocess import Keypoints
+            from spsvo.ops.postprocess import Keypoints
             kp = Keypoints(xy=jnp.ones((K, 2)) * 5, score=jnp.ones(K),
                            valid=jnp.ones(K, bool), desc=jnp.zeros((K, 4)))
             info["output"] = VOStepOutput(

@@ -3,7 +3,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from spsvo_tpu.io import homography as hg
+from spsvo.io import homography as hg
 
 
 def test_identity_homography_warp(rng):
@@ -64,8 +64,8 @@ def test_make_homographic_batch_shapes(rng):
     assert batch["labels_a"].shape == (2, 6, 8)
     assert batch["correspondence"].shape == (2, 48, 48)
     # batch feeds the training loss end-to-end
-    from spsvo_tpu.models import zoo
-    from spsvo_tpu.training import total_loss
+    from spsvo.models import zoo
+    from spsvo.training import total_loss
     apply_fn, params = zoo.load_model("superpoint_pretrained", seed=0)
     # pad images to a multiple of 8 in both dims (48, 64 already are)
     loss, metrics = jax.jit(

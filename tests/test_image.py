@@ -3,7 +3,7 @@ import cv2
 import numpy as np
 import jax.numpy as jnp
 
-from spsvo_tpu.ops import image as image_ops
+from spsvo.ops import image as image_ops
 
 
 def test_crop_geometry_kitti_to_392x120():

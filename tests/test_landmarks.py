@@ -15,14 +15,14 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation
 
-from spsvo_tpu.config import VOConfig
-from spsvo_tpu.geometry import se3
-from spsvo_tpu.ops import solver
-from spsvo_tpu.ops.solver import (LandmarkState, SolveInputs, fuse_landmarks,
+from spsvo.config import VOConfig
+from spsvo.geometry import se3
+from spsvo.ops import solver
+from spsvo.ops.solver import (LandmarkState, SolveInputs, fuse_landmarks,
                                   init_landmarks, prepare_solve,
                                   scatter_landmarks, solve_prepared,
                                   solve_with_landmarks, substitute_landmarks)
-from spsvo_tpu.ops.triangulation import project
+from spsvo.ops.triangulation import project
 
 P_L = np.array([[718.856, 0, 607.1928, 0.0],
                 [0, 718.856, 185.2157, 0.0],
@@ -37,7 +37,7 @@ def _proj(P, X):
 
 
 def _cfg(**kw):
-    base = dict(model_name_prefix="sp_mbv1", ransac_iterations=64,
+    base = dict(model_name_prefix="superpoint_pretrained", ransac_iterations=64,
                 ransac_chunk=0, lm_unroll=4, solve_slots=0,
                 max_keypoints=128, landmark_fusion=True,
                 ignore_frame_count=2)
@@ -285,8 +285,8 @@ def test_landmark_drift_beats_retriangulation(rng):
 def test_landmark_off_state_is_inert(rng):
     """With landmark_fusion=False the new VOState fields stay zero and the
     solve is byte-identical to the pre-landmark behavior (same seeds)."""
-    from spsvo_tpu.ops.postprocess import Keypoints
-    from spsvo_tpu.pipeline import features_step, init_state
+    from spsvo.ops.postprocess import Keypoints
+    from spsvo.pipeline import features_step, init_state
 
     cfg = _cfg(landmark_fusion=False, max_keypoints=64)
     k = cfg.max_keypoints
@@ -311,7 +311,7 @@ def test_weighted_lm_zero_inverse_weights_equals_degree2(rng):
     sys.path.insert(0, os.path.dirname(__file__))
     from test_geometry_solvers import _vo_frame
 
-    from spsvo_tpu.ops import lm
+    from spsvo.ops import lm
 
     data, R, t = _vo_frame(rng, n=200, noise=0.4)
     q0 = jnp.array([0.0, 0.0, 0.0, 1.0], jnp.float32)

@@ -4,9 +4,9 @@ import os
 import numpy as np
 import pytest
 
-from spsvo_tpu.io.loader import (NativeStereoLoader, PythonStereoLoader,
+from spsvo.io.loader import (NativeStereoLoader, PythonStereoLoader,
                                  make_loader)
-from spsvo_tpu.ops.image import preprocess_image_np
+from spsvo.ops.image import preprocess_image_np
 
 
 @pytest.fixture(scope="module")

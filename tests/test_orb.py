@@ -1,4 +1,4 @@
-"""TPU-native ORB front end (ops/orb.py): cv2 parity + quality tests.
+"""Device ORB front end (ops/orb.py): cv2 parity + quality tests.
 
 FAST detection/score/NMS must match cv2.FAST bit for bit (same integer
 semantics). The steered-BRIEF descriptors use their own seeded pattern (not
@@ -14,9 +14,9 @@ import jax.numpy as jnp
 
 cv2 = pytest.importorskip("cv2")
 
-from spsvo_tpu.ops import matching
-from spsvo_tpu.ops.postprocess import Keypoints
-from spsvo_tpu.ops.orb import (brief_descriptors, fast_score_map,
+from spsvo.ops import matching
+from spsvo.ops.postprocess import Keypoints
+from spsvo.ops.orb import (brief_descriptors, fast_score_map,
                                gaussian_blur7, ic_orientation, level_quotas,
                                make_brief_pattern, orb_features,
                                orb_frontend_batch)
@@ -237,15 +237,15 @@ def test_orb_frontend_batch_consistency(sample_image_dir):
 
 
 def test_orb_hybrid_corridor_drive(rng):
-    """End-to-end device-resident classic mode: TPU-native ORB front end +
+    """End-to-end device-resident classic mode: device ORB front end +
     Hamming matching + the full geometry stack over a real-geometry corridor
     drive — tracking must hold with bounded drift (the classic analogue of
     test_corridor_drive_accuracy)."""
     import dataclasses
 
-    from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
-    from spsvo_tpu.eval import harness
-    from spsvo_tpu.eval.synthetic import score_trajectory, synthetic_corridor
+    from spsvo.config import DescriptorType, DetectorType, VOConfig
+    from spsvo.eval import harness
+    from spsvo.eval.synthetic import score_trajectory, synthetic_corridor
 
     frames, gt, P_l, P_r = synthetic_corridor(
         rng, n_frames=16, h=250, w=828, yaw_rate=0.008,
@@ -274,8 +274,8 @@ def test_orb_hybrid_sharded_matches_unsharded(sample_image_dir):
     unsharded trajectory exactly, like the CNN hybrid (the ORB front end is
     frame-parallel elementwise work; the prior-scan consumes the same
     all-gathered per-pair inputs)."""
-    from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
-    from spsvo_tpu.parallel.sharding import build_orb_hybrid, make_mesh
+    from spsvo.config import DescriptorType, DetectorType, VOConfig
+    from spsvo.parallel.sharding import build_orb_hybrid, make_mesh
 
     h, w = 188, 620
     imgs = np.stack([
@@ -305,8 +305,8 @@ def test_classic_vo_device_frontend(sample_image_dir):
     """Per-frame classic API with the device front end: one jitted program
     per frame (detect -> match -> solve on device), same `process` surface
     as the host-OpenCV path."""
-    from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
-    from spsvo_tpu.frontend_classic import ClassicVisualOdometry
+    from spsvo.config import DescriptorType, DetectorType, VOConfig
+    from spsvo.frontend_classic import ClassicVisualOdometry
 
     cfg = VOConfig(is_classic=True, device_classic=True,
                    detector_type=DetectorType.ORB,
@@ -333,7 +333,7 @@ def test_gftt_detection_overlap_vs_cv2(sample_image_dir):
     """Device Shi-Tomasi corners must land where cv2.goodFeaturesToTrack
     puts them (same response map up to scale; the spatial suppression is a
     documented delta, so the test is overlap-based, not exact)."""
-    from spsvo_tpu.ops.orb import gftt_features
+    from spsvo.ops.orb import gftt_features
 
     img = _real_image(sample_image_dir, hw=(180, 360))
     kp = gftt_features(jnp.asarray(img, jnp.float32) / 255.0, k=300)
@@ -358,9 +358,9 @@ def test_gftt_hybrid_corridor_drive(rng):
     edition)."""
     import dataclasses
 
-    from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
-    from spsvo_tpu.eval import harness
-    from spsvo_tpu.eval.synthetic import score_trajectory, synthetic_corridor
+    from spsvo.config import DescriptorType, DetectorType, VOConfig
+    from spsvo.eval import harness
+    from spsvo.eval.synthetic import score_trajectory, synthetic_corridor
 
     frames, gt, P_l, P_r = synthetic_corridor(
         rng, n_frames=8, h=150, w=496, yaw_rate=0.008,
@@ -385,8 +385,8 @@ def test_orb_hybrid_composes_with_landmark_fusion(sample_image_dir):
     """The device-ORB front end composes with the landmark-fusion accuracy
     mode (the carried-landmark scan is front-end-agnostic): runs, tracks
     form, and the solve stays healthy."""
-    from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
-    from spsvo_tpu.parallel.sharding import build_orb_hybrid
+    from spsvo.config import DescriptorType, DetectorType, VOConfig
+    from spsvo.parallel.sharding import build_orb_hybrid
 
     h, w = 150, 496
     imgs = np.stack([
@@ -423,9 +423,9 @@ def test_orb_hybrid_composes_with_landmark_fusion(sample_image_dir):
 def test_run_sweep_device_classic_row(rng, tmp_path):
     """run_sweep dispatches device_classic configs to the fully
     device-resident mode and produces the standard row columns."""
-    from spsvo_tpu.config import device_classic_sweep_configs
-    from spsvo_tpu.eval import harness
-    from spsvo_tpu.eval.synthetic import synthetic_drive
+    from spsvo.config import device_classic_sweep_configs
+    from spsvo.eval import harness
+    from spsvo.eval.synthetic import synthetic_drive
 
     frames, poses, P_l, P_r = synthetic_drive(rng, n_frames=6)
     cfg = device_classic_sweep_configs()[0]  # ORB @ 120x392
@@ -436,7 +436,7 @@ def test_run_sweep_device_classic_row(rng, tmp_path):
                              out_json=str(tmp_path / "sweep.json"),
                              gt_poses=list(poses), max_frames=6)
     assert len(rows) == 1 and "error" not in rows[0], rows
-    assert rows[0]["config"].startswith("orbtpu_ORB_ORB_120_392")
+    assert rows[0]["config"].startswith("orbdev_ORB_ORB_120_392")
     assert rows[0]["fps"] > 0 and "ate_m" in rows[0]
 
 
@@ -444,8 +444,8 @@ def test_orb_hybrid_featureless_frames_degrade_gracefully():
     """All-flat frames produce zero FAST corners: the whole chain (matching,
     chain filter, solve) must stay mask-correct — PnP declared failed, poses
     fall back to the (identity) prior, nothing NaNs."""
-    from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
-    from spsvo_tpu.parallel.sharding import build_orb_hybrid
+    from spsvo.config import DescriptorType, DetectorType, VOConfig
+    from spsvo.parallel.sharding import build_orb_hybrid
 
     h, w = 150, 496
     imgs = jnp.full((6, 2, h, w), 0.43, jnp.float32)
@@ -472,11 +472,11 @@ def test_orb_hybrid_featureless_frames_degrade_gracefully():
 
 
 def test_orb_hybrid_pallas_solver_matches_xla(sample_image_dir, monkeypatch):
-    """The bench's device-ORB row runs use_pallas_solver=True: cover that
-    exact composition (ORB front end -> hoisted hypotheses -> in-scan fused
-    kernel) on CPU via interpret mode and pin it against the XLA solve."""
-    from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
-    from spsvo_tpu.parallel.sharding import build_orb_hybrid
+    """Cover the composition ORB front end -> hoisted hypotheses -> in-scan
+    fused kernel on CPU via interpret mode and pin it against the XLA
+    solve."""
+    from spsvo.config import DescriptorType, DetectorType, VOConfig
+    from spsvo.parallel.sharding import build_orb_hybrid
 
     h, w = 150, 496
     imgs = np.stack([
@@ -499,8 +499,9 @@ def test_orb_hybrid_pallas_solver_matches_xla(sample_image_dir, monkeypatch):
             jax.random.PRNGKey(0))
     w_xla, diag_xla = build_orb_hybrid(VOConfig(**base))(*args)
 
-    monkeypatch.setenv("SPSVO_PALLAS_INTERPRET", "1")
-    from spsvo_tpu.ops.solver import pallas_solver_eligible
+    from spsvo.ops import solver
+    monkeypatch.setattr(solver, "solver_kernel_available", lambda: True)
+    from spsvo.ops.solver import pallas_solver_eligible
     cfg_k = VOConfig(use_pallas_solver=True, **base)
     assert pallas_solver_eligible(cfg_k)
     w_kernel, diag_k = build_orb_hybrid(cfg_k)(*args)
@@ -518,8 +519,8 @@ def test_classic_device_process_stream(sample_image_dir):
     (The PRNG stream is keyed per chunk, not per frame, so bitwise equality
     with the per-frame API is not expected — same property as
     VisualOdometry.process_stream.)"""
-    from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
-    from spsvo_tpu.frontend_classic import ClassicVisualOdometry
+    from spsvo.config import DescriptorType, DetectorType, VOConfig
+    from spsvo.frontend_classic import ClassicVisualOdometry
 
     h, w = 150, 496
     frames = [np.stack([im, np.roll(im, -8, axis=1)])
@@ -555,8 +556,8 @@ def test_classic_stream_float_input_matches_uint8(sample_image_dir):
     """Float [0, 1] stream frames take the no-normalize path and reproduce
     the uint8 feed exactly (review finding: the scan body used to divide
     float inputs by 255 a second time, crushing intensities to ~0)."""
-    from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
-    from spsvo_tpu.frontend_classic import ClassicVisualOdometry
+    from spsvo.config import DescriptorType, DetectorType, VOConfig
+    from spsvo.frontend_classic import ClassicVisualOdometry
 
     h, w = 150, 496
     frames_u8 = [np.stack([im, np.roll(im, -8, axis=1)])
@@ -587,8 +588,8 @@ def test_stream_rejects_wrong_resolution(sample_image_dir):
     rescaled — running anyway would silently use a wrong P)."""
     import pytest as _pytest
 
-    from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
-    from spsvo_tpu.frontend_classic import ClassicVisualOdometry
+    from spsvo.config import DescriptorType, DetectorType, VOConfig
+    from spsvo.frontend_classic import ClassicVisualOdometry
 
     P = np.array([[718.856, 0, 607.1928, 0.0],
                   [0, 718.856, 185.2157, 0.0],
@@ -604,9 +605,9 @@ def test_stream_rejects_wrong_resolution(sample_image_dir):
     with _pytest.raises(ValueError, match="preprocessed"):
         list(ClassicVisualOdometry(cfg).process_stream(iter(bad), P, P_r))
 
-    from spsvo_tpu.config import VOConfig as VC
-    from spsvo_tpu.pipeline import VisualOdometry
-    vo = VisualOdometry(VC(model_name_prefix="sp_mbv1", image_height=120,
+    from spsvo.config import VOConfig as VC
+    from spsvo.pipeline import VisualOdometry
+    vo = VisualOdometry(VC(model_name_prefix="superpoint_pretrained", image_height=120,
                            image_width=392, max_keypoints=128))
     with _pytest.raises(ValueError, match="preprocessed"):
         list(vo.process_stream(iter(bad), P, P_r))
@@ -618,7 +619,7 @@ def test_device_classic_rejects_float_descriptor_config():
     would otherwise match bit-vectors with L2)."""
     import pytest as _pytest
 
-    from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
+    from spsvo.config import DescriptorType, DetectorType, VOConfig
     with _pytest.raises(ValueError, match="steered-BRIEF"):
         VOConfig(is_classic=True, device_classic=True,
                  detector_type=DetectorType.ORB,
@@ -632,7 +633,7 @@ def test_brisk_pattern_properties():
     _brisk_tables; reference BRISK config feature_detection_classic.cpp:
     30-31): 60 points on 4 rings + center, 512 unique shortest pairs, an
     antisymmetric long-pair orientation weight matrix, deterministic."""
-    from spsvo_tpu.ops.orb import _brisk_tables
+    from spsvo.ops.orb import _brisk_tables
 
     pts, sigma_bank, bank_idx, short_pairs, orient_w = _brisk_tables()
     assert pts.shape == (60, 2)
@@ -670,7 +671,7 @@ def test_brisk_rotation_invariance(sample_image_dir):
     the ring pattern so descriptors at corresponding points stay close in
     Hamming distance (mirrors test_brief_rotation_invariance; unrelated
     512-bit descriptors average ~256)."""
-    from spsvo_tpu.ops.orb import brisk_descriptors
+    from spsvo.ops.orb import brisk_descriptors
 
     img = _real_image(sample_image_dir, hw=(200, 400)).astype(np.float32)
     h, w = img.shape
@@ -723,9 +724,9 @@ def test_run_sweep_brisk_row(rng, tmp_path):
     run_sweep end to end and its config string carries the device tag."""
     import dataclasses
 
-    from spsvo_tpu.config import DescriptorType, classic_sweep_configs
-    from spsvo_tpu.eval import harness
-    from spsvo_tpu.eval.synthetic import synthetic_drive
+    from spsvo.config import DescriptorType, classic_sweep_configs
+    from spsvo.eval import harness
+    from spsvo.eval.synthetic import synthetic_drive
 
     frames, poses, P_l, P_r = synthetic_drive(rng, n_frames=6)
     cfg = [c for c in classic_sweep_configs()
@@ -739,7 +740,7 @@ def test_run_sweep_brisk_row(rng, tmp_path):
                              out_json=str(tmp_path / "sweep.json"),
                              gt_poses=list(poses), max_frames=6)
     assert len(rows) == 1 and "error" not in rows[0], rows
-    assert rows[0]["config"].startswith("orbtpu_BRISK_BRISK")
+    assert rows[0]["config"].startswith("orbdev_BRISK_BRISK")
     assert rows[0]["fps"] > 0 and "ate_m" in rows[0]
 
 
@@ -747,7 +748,7 @@ def test_gaussian_blur_radius3_matches_gaussian_blur7():
     """gaussian_blur7 (the ORB descriptor blur) is gaussian_blur(sigma=2,
     radius=3); the generic-radius path must reproduce it exactly and match
     a direct NumPy separable reflect-101 convolution."""
-    from spsvo_tpu.ops.orb import gaussian_blur
+    from spsvo.ops.orb import gaussian_blur
 
     r_ = np.random.default_rng(0)
     img = (r_.random((40, 56)) * 255).astype(np.float32)
@@ -771,7 +772,7 @@ def test_ic_moment_maps_matches_patch_gather(sample_image_dir):
     (the formulation it replaced): exact on integer-valued images; on
     /255-normalised floats fp32 reassociation leaves ~1e-6 relative
     differences (the docstring's stated tolerance — ADVICE r4)."""
-    from spsvo_tpu.ops.orb import HALF_PATCH, _ic_masks, ic_moment_maps
+    from spsvo.ops.orb import HALF_PATCH, _ic_masks, ic_moment_maps
 
     img = _real_image(sample_image_dir, hw=(120, 200)).astype(np.float32)
     mask, xm, ym = _ic_masks()

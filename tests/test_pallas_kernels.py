@@ -1,151 +1,83 @@
-"""Pallas kernels vs their XLA reference paths (interpret mode on CPU)."""
-import pytest
-import numpy as np
+"""The fused whole-solver Pallas kernel (Triton route) against the XLA
+solve_prepared path: interpret mode on the CPU, compiled on the GPU."""
+import dataclasses
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
+import numpy as np
+import pytest
 
-from spsvo_tpu.ops import matching
-from spsvo_tpu.ops.matching_pallas import match_nn_pallas
+sys.path.insert(0, os.path.dirname(__file__))
+from test_geometry_solvers import (P_L, P_R, _prepared_from_frame,  # noqa: E402
+                                   _vo_frame)
 
+from spsvo.config import VOConfig  # noqa: E402
+from spsvo.ops import pnp, solver, solver_pallas  # noqa: E402
 
-def _descs(rng, n, d=256):
-    x = rng.normal(size=(n, d)).astype(np.float32)
-    return x / np.linalg.norm(x, axis=-1, keepdims=True)
-
-
-def test_pallas_matcher_matches_xla(rng):
-    d0 = _descs(rng, 300)
-    d1 = _descs(rng, 450)
-    v0 = rng.random(300) > 0.15
-    v1 = rng.random(450) > 0.15
-    ref = matching.match_descriptors(
-        jnp.asarray(d0), jnp.asarray(v0), jnp.asarray(d1), jnp.asarray(v1),
-        cross_check=True)
-    idx, dist2 = match_nn_pallas(jnp.asarray(d0), jnp.asarray(v0),
-                                 jnp.asarray(d1), jnp.asarray(v1),
-                                 interpret=True)
-    np.testing.assert_array_equal(np.asarray(idx), np.asarray(ref.idx))
-    matched = np.asarray(idx) >= 0
-    np.testing.assert_allclose(np.asarray(dist2)[matched],
-                               np.asarray(ref.dist2)[matched], atol=1e-5)
+P_l = jnp.asarray(P_L, jnp.float32)
+P_r = jnp.asarray(P_R, jnp.float32)
+Q_ID = np.array([0, 0, 0, 1.0], np.float32)
+T_ID = np.zeros(3, np.float32)
 
 
-def test_pallas_matcher_all_invalid(rng):
-    d0 = _descs(rng, 64)
-    idx, _ = match_nn_pallas(jnp.asarray(d0), jnp.zeros(64, bool),
-                             jnp.asarray(d0), jnp.ones(64, bool),
-                             interpret=True)
-    assert (np.asarray(idx) == -1).all()
+def _cfg(**kw):
+    base = dict(model_name_prefix="superpoint_pretrained",
+                ransac_iterations=64, ransac_chunk=0, lm_unroll=6,
+                solve_slots=0)
+    base.update(kw)
+    return VOConfig(**base)
 
 
-def test_pipeline_flag_uses_pallas(monkeypatch, rng):
-    """use_pallas_matcher=True must route through the kernel ON TPU (here
-    simulated by patching the backend query; the kernel itself runs in
-    interpret mode) and produce the same match maps; on any other backend it
-    must transparently fall back to the XLA path."""
-    import dataclasses
-
-    import jax as jax_mod
-
-    from spsvo_tpu.config import VOConfig
-    from spsvo_tpu.ops import matching_pallas
-    from spsvo_tpu import pipeline as pipeline_mod
-    from spsvo_tpu.pipeline import Keypoints, _match
-
-    calls = []
-    orig = matching_pallas.match_nn_pallas
-
-    def spy(*a, **k):
-        calls.append(1)
-        return orig(*a, interpret=True)
-
-    monkeypatch.setattr(matching_pallas, "match_nn_pallas", spy)
-
-    d = _descs(rng, 128)
-    kp = Keypoints(xy=jnp.zeros((128, 2)), score=jnp.ones(128),
-                   valid=jnp.ones(128, bool), desc=jnp.asarray(d))
-    cfg = VOConfig(model_name_prefix="sp_mbv1", max_keypoints=128)
-    ref = _match(kp, kp, cfg)
-    cfg_p = dataclasses.replace(cfg, use_pallas_matcher=True)
-
-    # off-TPU: the flag is a no-op (XLA fallback), kernel NOT invoked
-    out_cpu = _match(kp, kp, cfg_p)
-    assert not calls, "pallas kernel must not run off-TPU"
-    np.testing.assert_array_equal(np.asarray(out_cpu.idx),
-                                  np.asarray(ref.idx))
-
-    # "on TPU": backend query patched; kernel must be invoked and agree
-    monkeypatch.setattr(pipeline_mod.jax, "default_backend", lambda: "tpu")
-    out = _match(kp, kp, cfg_p)
-    assert calls, "pallas kernel was not invoked"
-    np.testing.assert_array_equal(np.asarray(out.idx), np.asarray(ref.idx))
+def _assert_matches_xla(got, ref, inlier_flips=3):
+    """Kernel vs XLA tolerances: fp32 reduction order differs (tree
+    reductions in one block vs XLA's fused reductions), so poses agree to
+    1e-4 (quaternion) / 1e-3 m and at most a few borderline inliers flip."""
+    np.testing.assert_allclose(np.asarray(got.q), np.asarray(ref.q),
+                               atol=1e-4)
+    np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
+                               atol=1e-3)
+    np.testing.assert_allclose(np.asarray(got.q_pred),
+                               np.asarray(ref.q_pred), atol=1e-4)
+    np.testing.assert_allclose(np.asarray(got.t_pred),
+                               np.asarray(ref.t_pred), atol=1e-3)
+    assert abs(int(got.num_inliers) - int(ref.num_inliers)) <= inlier_flips
+    assert bool(got.pnp_success) == bool(ref.pnp_success)
+    assert bool(got.accel_anomaly) == bool(ref.accel_anomaly)
+    assert int(got.num_chain) == int(ref.num_chain)
+    flips = (np.asarray(ref.inliers) != np.asarray(got.inliers)).sum()
+    assert flips <= inlier_flips
 
 
 def test_fused_solver_matches_solve_prepared(rng):
-    """The whole-solver Pallas kernel (score -> winner -> refit -> polish ->
-    LM -> gates) must reproduce solver.solve_prepared in both winner
-    branches (interpret mode; fp32 reduction-order tolerance)."""
-    import os
-    import sys
-    sys.path.insert(0, os.path.dirname(__file__))
+    """The whole-solver kernel (score -> winner -> refit -> polish -> LM ->
+    gates) must reproduce solver.solve_prepared in both winner branches."""
     from scipy.spatial.transform import Rotation
-    from test_geometry_solvers import (P_L, P_R, _prepared_from_frame,
-                                       _vo_frame)
 
-    from spsvo_tpu.config import VOConfig
-    from spsvo_tpu.ops import solver, solver_pallas
-
-    cfg = VOConfig(model_name_prefix="sp_mbv1", ransac_iterations=64,
-                   ransac_chunk=0, lm_unroll=6, solve_slots=0)
+    cfg = _cfg()
     data, R, t = _vo_frame(rng, n=250, outlier_frac=0.15, k_pad=512)
     prep = _prepared_from_frame(data)
-    P_l = jnp.asarray(P_L, jnp.float32)
-    P_r = jnp.asarray(P_R, jnp.float32)
     key = jax.random.PRNGKey(7)
     q_true = jnp.asarray(Rotation.from_matrix(R).as_quat(), jnp.float32)
     t_true = jnp.asarray(t, jnp.float32)
-    q_id = jnp.array([0, 0, 0, 1.0], jnp.float32)
-    t_id = jnp.zeros(3, jnp.float32)
 
     hyp = solver_pallas.precompute_hypotheses(key, prep, cfg)
     fc = jnp.int32(5)   # accel gate disarmed: full refinement path compared
-    for q_pred, t_pred, want_prior in ((q_id, t_id, False),
-                                       (q_true, t_true, True)):
+    for q_pred, t_pred, want_prior in ((jnp.asarray(Q_ID), jnp.asarray(T_ID),
+                                        False), (q_true, t_true, True)):
         ref = solver.solve_prepared(key, prep, P_l, P_r, q_pred, t_pred,
                                     fc, cfg)
         got = solver_pallas.fused_solve(hyp, prep, P_l, P_r, q_pred,
                                         t_pred, fc, cfg, interpret=True)
         assert bool(got.prior_winner) == want_prior
-        np.testing.assert_allclose(np.asarray(got.q), np.asarray(ref.q),
-                                   atol=1e-4)
-        np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
-                                   atol=1e-3)
-        np.testing.assert_allclose(np.asarray(got.q_pred),
-                                   np.asarray(ref.q_pred), atol=1e-4)
-        np.testing.assert_allclose(np.asarray(got.t_pred),
-                                   np.asarray(ref.t_pred), atol=1e-3)
-        assert abs(int(got.num_inliers) - int(ref.num_inliers)) <= 3
-        assert bool(got.pnp_success) == bool(ref.pnp_success)
-        assert bool(got.accel_anomaly) == bool(ref.accel_anomaly)
-        assert int(got.num_chain) == int(ref.num_chain)
-        inl_ref = np.asarray(ref.inliers)
-        inl_got = np.asarray(got.inliers)
-        assert (inl_ref != inl_got).sum() <= 3
+        _assert_matches_xla(got, ref)
 
 
 def test_fused_solver_gate_fallback(rng):
     """PnP failure (too few inliers) must fall back to the prediction, like
     the reference's gate (feature_detection_base.cpp:244-250)."""
-    import os
-    import sys
-    sys.path.insert(0, os.path.dirname(__file__))
-    from test_geometry_solvers import P_L, P_R, _prepared_from_frame, _vo_frame
-
-    from spsvo_tpu.config import VOConfig
-    from spsvo_tpu.ops import solver_pallas
-
-    cfg = VOConfig(model_name_prefix="sp_mbv1", ransac_iterations=32,
-                   ransac_chunk=0, lm_unroll=4, solve_slots=0)
+    cfg = _cfg(ransac_iterations=32, lm_unroll=4)
     data, R, t = _vo_frame(rng, n=20, outlier_frac=0.0, k_pad=256)
     # destroy the observations so nothing can be an inlier
     data["uv_prev_l"] = data["uv_prev_l"] + 500.0
@@ -155,10 +87,8 @@ def test_fused_solver_gate_fallback(rng):
     q_pred = jnp.asarray([0.1, 0.0, 0.0, 0.99], jnp.float32)
     q_pred = q_pred / jnp.linalg.norm(q_pred)
     t_pred = jnp.asarray([0.3, 0.0, -1.0], jnp.float32)
-    got = solver_pallas.fused_solve(
-        hyp, prep, jnp.asarray(P_L, jnp.float32),
-        jnp.asarray(P_R, jnp.float32), q_pred, t_pred, jnp.int32(5), cfg,
-        interpret=True)
+    got = solver_pallas.fused_solve(hyp, prep, P_l, P_r, q_pred, t_pred,
+                                    jnp.int32(5), cfg, interpret=True)
     assert not bool(got.pnp_success)
     np.testing.assert_allclose(np.asarray(got.q), np.asarray(q_pred),
                                atol=1e-6)
@@ -166,39 +96,43 @@ def test_fused_solver_gate_fallback(rng):
                                atol=1e-6)
 
 
-def test_hybrid_pallas_solver_flag_falls_back_off_tpu(rng):
-    """With use_pallas_solver=True off-TPU, build_online_hybrid must take the
-    XLA solve_prepared path and produce a normal trajectory."""
-    import os
-    import sys
-    sys.path.insert(0, os.path.dirname(__file__))
-    from test_pipeline import _synthetic_sequence
+def test_solver_kernel_selection(monkeypatch):
+    """The kernel is chosen from the platform and the config's eligibility:
+    off the GPU the XLA solve_prepared runs; where the kernel is available,
+    eligible configs (single-batch RANSAC + unrolled LM) run it and every
+    other config stays on XLA."""
+    flag = _cfg(use_pallas_solver=True, ransac_iterations=32)
+    assert solver.solver_kernel_available() == (
+        jax.default_backend() == "gpu")
+    if jax.default_backend() != "gpu":
+        assert not solver.pallas_solver_eligible(flag)
 
-    from spsvo_tpu.config import VOConfig
-    from spsvo_tpu.models import zoo
-    from spsvo_tpu.ops.image import (preprocess_image_np,
-                                     update_projection_matrix_np)
-    from spsvo_tpu.parallel.sharding import build_online_hybrid
+    monkeypatch.setattr(solver, "solver_kernel_available", lambda: True)
+    assert solver.pallas_solver_eligible(flag)
+    for bad in (dict(use_pallas_solver=False), dict(lm_unroll=0),
+                dict(ransac_chunk=16)):
+        assert not solver.pallas_solver_eligible(
+            dataclasses.replace(flag, **bad)), bad
 
-    cfg = VOConfig(model_name_prefix="sp_mbv1", conf_thresh=0.005,
-                   ransac_iterations=64, max_keypoints=256,
-                   ransac_chunk=0, lm_unroll=4, solve_slots=128,
-                   use_pallas_solver=True)
-    apply_fn, params = zoo.load_model(cfg.model_name_prefix)
-    frames, poses, P_l, P_r = _synthetic_sequence(rng, n_frames=4)
-    h0, w0 = frames[0][0].shape
-    P_l2 = update_projection_matrix_np(P_l, h0, w0, 120, 392)
-    P_r2 = update_projection_matrix_np(P_r, h0, w0, 120, 392)
-    imgs = np.stack([
-        np.stack([preprocess_image_np(il, 120, 392),
-                  preprocess_image_np(ir, 120, 392)])
-        for il, ir in frames])
-    w, _ = build_online_hybrid(apply_fn, cfg)(
-        params, jnp.asarray(imgs), jnp.asarray(P_l2, jnp.float32),
-        jnp.asarray(P_r2, jnp.float32), jax.random.PRNGKey(0))
-    assert np.isfinite(np.asarray(w)).all()
-    gt = np.array([T[:3, 3] for T in poses])
-    assert np.abs(np.asarray(w)[:, :3, 3] - gt).max() < 0.3
+    calls = []
+    orig = solver_pallas.fused_solve
+
+    def spy(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(solver_pallas, "fused_solve", spy)
+    data, R, t = _vo_frame(np.random.default_rng(3), n=120,
+                           outlier_frac=0.1, k_pad=128)
+    prep = _prepared_from_frame(data)
+    args = (jax.random.PRNGKey(1), prep, P_l, P_r, jnp.asarray(Q_ID),
+            jnp.asarray(T_ID), jnp.int32(5))
+    got = solver.solve_prepared(*args, flag)
+    assert len(calls) == 1, "eligible config did not run the kernel"
+    ref = solver.solve_prepared(
+        *args, dataclasses.replace(flag, use_pallas_solver=False))
+    assert len(calls) == 1, "ineligible config ran the kernel"
+    _assert_matches_xla(got, ref)
 
 
 @pytest.mark.parametrize("degree,unroll", [(1, 4), (2, 6), (0, 4), (3, 6)])
@@ -206,29 +140,17 @@ def test_fused_solver_degree_variants(rng, degree, unroll):
     """Kernel parity across the refinement-degree schedule and LM unroll
     counts (degree 0 = no LM refinement at all; degree 3 is the only
     schedule point with exactly one inverse factor)."""
-    import os
-    import sys
-    sys.path.insert(0, os.path.dirname(__file__))
-    from test_geometry_solvers import P_L, P_R, _prepared_from_frame, _vo_frame
-
-    from spsvo_tpu.config import VOConfig
-    from spsvo_tpu.ops import solver, solver_pallas
-
-    cfg = VOConfig(model_name_prefix="sp_mbv1", ransac_iterations=32,
-                   ransac_chunk=0, lm_unroll=unroll, solve_slots=0,
-                   refinement_degree=degree)
+    cfg = _cfg(ransac_iterations=32, lm_unroll=unroll,
+               refinement_degree=degree)
     data, R, t = _vo_frame(rng, n=150, outlier_frac=0.1, k_pad=256)
     prep = _prepared_from_frame(data)
-    P_l = jnp.asarray(P_L, jnp.float32)
-    P_r = jnp.asarray(P_R, jnp.float32)
     key = jax.random.PRNGKey(11)
-    q_id = jnp.array([0, 0, 0, 1.0], jnp.float32)
-    t_id = jnp.zeros(3, jnp.float32)
     hyp = solver_pallas.precompute_hypotheses(key, prep, cfg)
-    ref = solver.solve_prepared(key, prep, P_l, P_r, q_id, t_id,
-                                jnp.int32(5), cfg)
-    got = solver_pallas.fused_solve(hyp, prep, P_l, P_r, q_id, t_id,
-                                    jnp.int32(5), cfg, interpret=True)
+    ref = solver.solve_prepared(key, prep, P_l, P_r, jnp.asarray(Q_ID),
+                                jnp.asarray(T_ID), jnp.int32(5), cfg)
+    got = solver_pallas.fused_solve(hyp, prep, P_l, P_r, jnp.asarray(Q_ID),
+                                    jnp.asarray(T_ID), jnp.int32(5), cfg,
+                                    interpret=True)
     np.testing.assert_allclose(np.asarray(got.q), np.asarray(ref.q),
                                atol=1e-4)
     np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
@@ -237,70 +159,20 @@ def test_fused_solver_degree_variants(rng, degree, unroll):
     assert bool(got.lm_improved) == bool(ref.lm_improved)
 
 
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="Mosaic TPU lowering parity needs a real TPU "
-                           "(the CPU suite pins interpret-mode parity only)")
-def test_fused_solver_tpu_lowering_parity(rng):
-    """Opt-in (real-TPU) parity: the MOSAIC-lowered fused_solve must match
-    solve_prepared at the same tolerances the interpret-mode tests pin —
-    catching TPU-lowering numerics regressions that interpret mode cannot
-    (ADVICE r2). Run via: python -m pytest tests/test_pallas_kernels.py
-    -k tpu_lowering --no-header -p no:cacheprovider (outside the CPU-forcing
-    conftest env, e.g. SPSVO_TEST_TPU=1)."""
-    import os
-    import sys
-    sys.path.insert(0, os.path.dirname(__file__))
-    from test_geometry_solvers import P_L, P_R, _prepared_from_frame, _vo_frame
-
-    from spsvo_tpu.config import VOConfig
-    from spsvo_tpu.ops import solver, solver_pallas
-
-    cfg = VOConfig(model_name_prefix="sp_mbv1", ransac_iterations=32,
-                   ransac_chunk=0, lm_unroll=6, solve_slots=0)
-    data, R, t = _vo_frame(rng, n=150, outlier_frac=0.1, k_pad=256)
-    prep = _prepared_from_frame(data)
-    P_l = jnp.asarray(P_L, jnp.float32)
-    P_r = jnp.asarray(P_R, jnp.float32)
-    key = jax.random.PRNGKey(11)
-    q_id = jnp.array([0, 0, 0, 1.0], jnp.float32)
-    t_id = jnp.zeros(3, jnp.float32)
-    hyp = solver_pallas.precompute_hypotheses(key, prep, cfg)
-    ref = solver.solve_prepared(key, prep, P_l, P_r, q_id, t_id,
-                                jnp.int32(5), cfg)
-    got = jax.jit(lambda *a: solver_pallas.fused_solve(*a, cfg=cfg))(
-        hyp, prep, P_l, P_r, q_id, t_id, jnp.int32(5))
-    np.testing.assert_allclose(np.asarray(got.q), np.asarray(ref.q),
-                               atol=1e-4)
-    np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
-                               atol=1e-3)
-    assert abs(int(got.num_inliers) - int(ref.num_inliers)) <= 3
-
-
 def test_fused_solver_weighted_lm_matches_xla(rng):
     """The in-kernel GLS weighted-LM pass (landmark fusion's lane_weights)
     must reproduce the XLA composition solve_prepared + weighted
-    lm.refine_pose that solve_with_landmarks runs off-TPU."""
-    import os
-    import sys
-    sys.path.insert(0, os.path.dirname(__file__))
-    from test_geometry_solvers import P_L, P_R, _prepared_from_frame, _vo_frame
+    lm.refine_pose that solve_with_landmarks runs without the kernel."""
+    from spsvo.ops import lm
 
-    from spsvo_tpu.config import VOConfig
-    from spsvo_tpu.ops import lm, solver, solver_pallas
-
-    cfg = VOConfig(model_name_prefix="sp_mbv1", ransac_iterations=64,
-                   ransac_chunk=0, lm_unroll=6, solve_slots=0)
+    cfg = _cfg()
     data, R, t = _vo_frame(rng, n=250, outlier_frac=0.1, k_pad=512)
     prep = _prepared_from_frame(data)
-    P_l = jnp.asarray(P_L, jnp.float32)
-    P_r = jnp.asarray(P_R, jnp.float32)
     key = jax.random.PRNGKey(3)
     fc = jnp.int32(5)
-    q_id = jnp.array([0, 0, 0, 1.0], jnp.float32)
-    t_id = jnp.zeros(3, jnp.float32)
+    q_id, t_id = jnp.asarray(Q_ID), jnp.asarray(T_ID)
     k = prep.chain.shape[0]
-    w_row = jnp.asarray(
-        rng.integers(1, 12, k).astype(np.float32))
+    w_row = jnp.asarray(rng.integers(1, 12, k).astype(np.float32))
 
     # XLA reference: unweighted solve, then the GLS pass from the refined
     # pose (exactly solve_with_landmarks's non-kernel branch)
@@ -327,3 +199,140 @@ def test_fused_solver_weighted_lm_matches_xla(rng):
     # the weighted pass must differ from the unweighted result (the weights
     # actually steer the solution) while staying near the true pose
     assert np.abs(np.asarray(got.t) - np.asarray(ref.t)).max() > 1e-6
+
+
+# --------------------------------------------------------------------------
+# the wrapper: padding and layouts
+# --------------------------------------------------------------------------
+
+def test_hypothesis_padding_keeps_first_max_winner(rng):
+    """S is padded to a power of two and scored in tiles: the winner must be
+    the FIRST sampled hypothesis with the highest count (jnp.argmax order in
+    ransac_pose), across tile boundaries, and padded lanes must never win
+    even when they hold the best pose."""
+    cfg = _cfg(ransac_iterations=300)         # Sp = 512; Lp = 128 -> TS = 32
+    data, R, t = _vo_frame(rng, n=100, outlier_frac=0.0, noise=0.0,
+                           k_pad=128)
+    prep = _prepared_from_frame(data)
+    good = np.concatenate([R.reshape(-1), t]).astype(np.float32)
+    bad = good.copy()
+    bad[9:12] += np.array([5.0, -5.0, 9.0], np.float32)
+    Sp = 512
+    pts = solver_pallas.pack_points(prep)
+    scal = solver_pallas.pack_scalars(
+        jnp.asarray(Q_ID), jnp.asarray([0.0, 0.0, 50.0], jnp.float32),
+        jnp.int32(0), P_l, P_r)              # a prior that scores nothing
+
+    def winner(lanes):
+        cols = np.tile(bad[:, None], (1, Sp))
+        for j in lanes:
+            cols[:, j] = good
+        cols[:, 300:] = good[:, None]        # padded lanes hold the best pose
+        hyp = solver_pallas.FusedHypotheses(
+            jnp.asarray(np.pad(cols, ((0, 4), (0, 0)))))
+        out, _ = solver_pallas.fused_solve_raw(hyp, pts, scal, cfg,
+                                               interpret=True)
+        return int(np.asarray(out)[0, solver_pallas.OUT_WINNER])
+
+    # the bad pose scores no inlier, the good one scores them all
+    def count(g):
+        return int(np.sum(np.asarray(pnp._score_mask(
+            jnp.asarray(g[:9].reshape(3, 3)), jnp.asarray(g[9:12]),
+            prep.pts3d_curr, prep.uv_prev_l, prep.chain, P_l,
+            cfg.ransac_reproj_threshold ** 2))))
+    assert count(bad) == 0 and count(good) == 100
+
+    assert winner([70, 40, 299]) == 40        # first max, second tile
+    assert winner([299]) == 299               # last real lane
+    assert winner([]) == 0                    # all tie at 0: first lane
+
+
+def test_point_padding_to_power_of_two(rng):
+    """L lanes are padded to a power of two (>= 128) with lanes that are off
+    the chain and at unit depth; the kernel's masks and counts must ignore
+    them, so a non-power-of-two L solves like the XLA path."""
+    cfg = _cfg(ransac_iterations=32)
+    data, R, t = _vo_frame(rng, n=150, outlier_frac=0.1, k_pad=200)
+    prep = _prepared_from_frame(data)
+    pts = np.asarray(solver_pallas.pack_points(prep))
+    assert pts.shape == (16, 256)
+    assert (pts[14, 200:] == 0).all()                     # off the chain
+    assert (pts[2, 200:] == 1).all() and (pts[5, 200:] == 1).all()
+    assert (pts[15] == 0).all()                           # no GLS weights
+    small = _prepared_from_frame(_vo_frame(rng, n=50, k_pad=64)[0])
+    assert solver_pallas.pack_points(small).shape == (16, 128)
+
+    key = jax.random.PRNGKey(4)
+    hyp = solver_pallas.precompute_hypotheses(key, prep, cfg)
+    assert hyp.hyp.shape == (16, 32)
+    ref = solver.solve_prepared(key, prep, P_l, P_r, jnp.asarray(Q_ID),
+                                jnp.asarray(T_ID), jnp.int32(5), cfg)
+    got = solver_pallas.fused_solve(hyp, prep, P_l, P_r, jnp.asarray(Q_ID),
+                                    jnp.asarray(T_ID), jnp.int32(5), cfg,
+                                    interpret=True)
+    assert got.inliers.shape == (200,)
+    _assert_matches_xla(got, ref)
+
+
+def test_scalar_vector_layouts(rng):
+    """The (1, 32) scalar input and output vectors: input = [q_pred | t_pred
+    | frame_count | P_l | P_r]; output slots OUT_* decode to the
+    SolveResult fields and every unused slot is zero."""
+    q = jnp.asarray([0.1, 0.2, 0.3, 0.9], jnp.float32)
+    t = jnp.asarray([1.0, 2.0, 3.0], jnp.float32)
+    scal = np.asarray(solver_pallas.pack_scalars(q, t, jnp.int32(7), P_l,
+                                                 P_r))
+    assert scal.shape == (1, solver_pallas.N_SCALARS)
+    np.testing.assert_array_equal(scal[0, 0:4], np.asarray(q))
+    np.testing.assert_array_equal(scal[0, 4:7], np.asarray(t))
+    assert scal[0, 7] == 7
+    np.testing.assert_array_equal(scal[0, 8:20],
+                                  P_L.reshape(-1).astype(np.float32))
+    np.testing.assert_array_equal(scal[0, 20:32],
+                                  P_R.reshape(-1).astype(np.float32))
+
+    cfg = _cfg(ransac_iterations=32, lm_unroll=4)
+    data, R, t_true = _vo_frame(rng, n=120, outlier_frac=0.1, k_pad=128)
+    prep = _prepared_from_frame(data)
+    hyp = solver_pallas.precompute_hypotheses(jax.random.PRNGKey(2), prep,
+                                              cfg)
+    args = (jnp.asarray(Q_ID), jnp.asarray(T_ID), jnp.int32(5))
+    out, inl = solver_pallas.fused_solve_raw(
+        hyp, solver_pallas.pack_points(prep),
+        solver_pallas.pack_scalars(*args, P_l, P_r), cfg, interpret=True)
+    out = np.asarray(out)[0]
+    assert np.asarray(inl).shape == (1, 128)
+    assert (out[solver_pallas.OUT_WINNER + 1:] == 0).all()
+    res = solver_pallas.fused_solve(hyp, prep, P_l, P_r, *args, cfg,
+                                    interpret=True)
+    np.testing.assert_array_equal(out[0:4], np.asarray(res.q))
+    np.testing.assert_array_equal(out[4:7], np.asarray(res.t))
+    assert out[solver_pallas.OUT_NUM_INLIERS] == int(res.num_inliers)
+    assert out[solver_pallas.OUT_NUM_CHAIN] == int(res.num_chain) == 120
+    assert out[solver_pallas.OUT_SUCCESS] == 1.0
+    assert (np.asarray(inl)[0] > 0).sum() == int(res.num_inliers)
+
+
+# --------------------------------------------------------------------------
+# compiled on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,L", [(256, 128), (500, 1024)])
+def test_fused_solver_gpu_parity(S, L):
+    """The Triton-compiled fused_solve must match solve_prepared at the
+    tolerances the interpret-mode tests pin, at the flagship (S=256, L=128)
+    and reference-parity (S=500, L=1024) widths. chip_smoke.py runs the
+    same comparison."""
+    rng = np.random.default_rng(S)
+    cfg = _cfg(ransac_iterations=S, solve_slots=L)
+    data, R, t = _vo_frame(rng, n=min(L, 400), outlier_frac=0.15, k_pad=L)
+    prep = _prepared_from_frame(data)
+    key = jax.random.PRNGKey(11)
+    args = (jnp.asarray(Q_ID), jnp.asarray(T_ID), jnp.int32(5))
+    hyp = solver_pallas.precompute_hypotheses(key, prep, cfg)
+    ref = jax.jit(lambda *a: solver.solve_prepared(*a, cfg=cfg))(
+        key, prep, P_l, P_r, *args)
+    got = jax.jit(lambda *a: solver_pallas.fused_solve(
+        *a, cfg=cfg, interpret=False))(hyp, prep, P_l, P_r, *args)
+    _assert_matches_xla(got, ref)

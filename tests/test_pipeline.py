@@ -9,13 +9,13 @@ import jax.numpy as jnp
 import pytest
 from scipy.spatial.transform import Rotation
 
-from spsvo_tpu.config import VOConfig
-from spsvo_tpu.pipeline import VisualOdometry, init_state
+from spsvo.config import VOConfig
+from spsvo.pipeline import VisualOdometry, init_state
 
 
 def _synthetic_sequence(rng, n_frames=6):
     """Exact homography-rendered stereo sequence (see eval.synthetic)."""
-    from spsvo_tpu.eval.synthetic import synthetic_drive
+    from spsvo.eval.synthetic import synthetic_drive
     twists = [(np.array([0.0, 0.004, 0.0]), np.array([0.02, 0.0, 0.35]))
               for _ in range(n_frames - 1)]
     return synthetic_drive(rng, n_frames=n_frames, twists=twists)
@@ -23,7 +23,7 @@ def _synthetic_sequence(rng, n_frames=6):
 
 @pytest.mark.slow
 def test_synthetic_motion_recovered(rng):
-    cfg = VOConfig(model_name_prefix="sp_mbv1", conf_thresh=0.005,
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", conf_thresh=0.005,
                    ransac_iterations=200, max_keypoints=512)
     vo = VisualOdometry(cfg)
     frames, poses, P_l, P_r = _synthetic_sequence(rng)
@@ -40,7 +40,7 @@ def test_synthetic_motion_recovered(rng):
 
 
 def test_first_frame_identity(rng):
-    cfg = VOConfig(model_name_prefix="sp_mbv1", max_keypoints=256)
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", max_keypoints=256)
     vo = VisualOdometry(cfg)
     img = (rng.random((375, 1242)) * 255).astype(np.uint8)
     P = np.array([[718.856, 0, 607.1928, 0.0],
@@ -58,7 +58,7 @@ def test_sample_images_run(sample_image_dir):
     monocular frames; we feed them as a degenerate stereo pair just to check
     the full pipeline executes and produces finite poses and real keypoints.
     """
-    cfg = VOConfig(model_name_prefix="sp_mbv1", max_keypoints=512)
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", max_keypoints=512)
     vo = VisualOdometry(cfg)
     P = np.array([[718.856, 0, 607.1928, 0.0],
                   [0, 718.856, 185.2157, 0.0],
@@ -77,7 +77,7 @@ def test_sample_images_run(sample_image_dir):
 
 
 def test_state_reset():
-    cfg = VOConfig(model_name_prefix="sp_mbv1", max_keypoints=128)
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", max_keypoints=128)
     vo = VisualOdometry(cfg)
     img = np.zeros((375, 1242), np.uint8)
     P = np.eye(3, 4); P_r = P.copy(); P_r[0, 3] = -386.0
@@ -93,10 +93,10 @@ def test_state_reset():
 def test_process_stream_matches_process(rng):
     """The chunked streaming API must reproduce the per-frame online path
     (same state semantics) on the same preprocessed frames."""
-    from spsvo_tpu.ops.image import (preprocess_image_np,
+    from spsvo.ops.image import (preprocess_image_np,
                                      update_projection_matrix_np)
     frames, poses, P_l, P_r = _synthetic_sequence(rng, n_frames=7)
-    cfg = VOConfig(model_name_prefix="sp_mbv1", conf_thresh=0.005,
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", conf_thresh=0.005,
                    ransac_iterations=128, max_keypoints=256)
     h0, w0 = frames[0][0].shape
     P_l2 = update_projection_matrix_np(P_l, h0, w0, 120, 392)
@@ -123,14 +123,14 @@ def test_process_stream_matches_process(rng):
 
 @pytest.mark.slow
 def test_process_stream_padded_tail_preserves_state(rng):
-    """Padded tail-chunk frames must not advance the carried device state
-    (VERDICT r1 weak #4): after streaming 5 frames with chunk=16 (11 padded
+    """Padded tail-chunk frames must not advance the carried device state:
+    after streaming 5 frames with chunk=16 (11 padded
     lanes), state must equal the state after frame 5, and streaming may
     continue seamlessly."""
-    from spsvo_tpu.ops.image import (preprocess_image_np,
+    from spsvo.ops.image import (preprocess_image_np,
                                      update_projection_matrix_np)
     frames, poses, P_l, P_r = _synthetic_sequence(rng, n_frames=8)
-    cfg = VOConfig(model_name_prefix="sp_mbv1", conf_thresh=0.005,
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", conf_thresh=0.005,
                    ransac_iterations=64, max_keypoints=128)
     h0, w0 = frames[0][0].shape
     P_l2 = update_projection_matrix_np(P_l, h0, w0, 120, 392)
@@ -169,7 +169,7 @@ def test_instrumented_stages_match_fused(rng):
     exactly (same PRNG stream, same math) and produce real per-stage
     latencies that add up to its total."""
     frames, poses, P_l, P_r = _synthetic_sequence(rng, n_frames=5)
-    cfg = VOConfig(model_name_prefix="sp_mbv1", conf_thresh=0.005,
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", conf_thresh=0.005,
                    ransac_iterations=64, max_keypoints=128)
     vo_f = VisualOdometry(cfg)
     vo_i = VisualOdometry(cfg)
@@ -191,14 +191,14 @@ def test_harness_instrumented_csv_columns(rng, tmp_path):
     the reference's 4-column CSV contract."""
     import csv as csv_mod
 
-    from spsvo_tpu.eval.harness import run_sequence
+    from spsvo.eval.harness import run_sequence
     frames, _, P_l, P_r = _synthetic_sequence(rng, n_frames=4)
-    cfg = VOConfig(model_name_prefix="sp_mbv1", conf_thresh=0.005,
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", conf_thresh=0.005,
                    ransac_iterations=64, max_keypoints=128)
     vo = VisualOdometry(cfg)
     res = run_sequence(vo, iter(frames), P_l, P_r,
                        latency_dir=str(tmp_path), instrument_stages=True)
-    path = tmp_path / "tpu" / f"{cfg.config_string}_seq.csv"
+    path = tmp_path / "device" / f"{cfg.config_string}_seq.csv"
     rows = list(csv_mod.DictReader(open(path)))
     assert len(rows) == 4
     for r in rows:

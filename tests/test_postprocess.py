@@ -3,7 +3,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from spsvo_tpu.ops import postprocess as pp
+from spsvo.ops import postprocess as pp
 from tests import oracle
 
 
@@ -125,12 +125,12 @@ def test_nms_parity_on_real_model_heatmap(sample_image_dir):
 
     import cv2
 
-    from spsvo_tpu.models import zoo
-    from spsvo_tpu.ops.image import preprocess_image_np
+    from spsvo.models import zoo
+    from spsvo.ops.image import preprocess_image_np
     img = cv2.imread(os.path.join(sample_image_dir, "0000000000.png"),
                      cv2.IMREAD_GRAYSCALE)
     x = preprocess_image_np(img, 120, 392)[None, ..., None]
-    apply_fn, params = zoo.load_model("sp_mbv1")
+    apply_fn, params = zoo.load_model("superpoint_pretrained")
     out = apply_fn(params, jnp.asarray(x))
     heat = np.asarray(pp.heatmap_from_logits(out["output_det"]))[0]
 

@@ -1,5 +1,5 @@
 """Real-imagery regression: the reference's 22 bundled KITTI frames as the
-inter-frame matching/NMS/descriptor corpus (VERDICT r2 item #7).
+inter-frame matching/NMS/descriptor corpus.
 
 The frames (reference sample_images/0000000000..21.png, 1242x375) are
 CONSECUTIVE real KITTI images with real forward camera motion — unlike the
@@ -15,12 +15,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from spsvo_tpu.config import (DescriptorType, DetectorType,
+from spsvo.config import (DescriptorType, DetectorType,
                               VOConfig)
-from spsvo_tpu.models import zoo
-from spsvo_tpu.ops.image import preprocess_image_np
-from spsvo_tpu.ops.postprocess import extract_keypoints
-from spsvo_tpu.pipeline import _match
+from spsvo.models import zoo
+from spsvo.ops.image import preprocess_image_np
+from spsvo.ops.postprocess import extract_keypoints
+from spsvo.pipeline import _match
 
 
 def _load_raw(sample_image_dir):
@@ -44,9 +44,9 @@ def test_real_sequence_matching_corpus(sample_image_dir, h, w, min_kps,
                                        min_match, flow_lo, flow_hi):
     raw = _load_raw(sample_image_dir)
     assert len(raw) == 22
-    cfg = VOConfig(model_name_prefix="sp_mbv1", image_height=h,
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", image_height=h,
                    image_width=w, max_keypoints=1000)
-    apply_fn, params = zoo.load_model("sp_mbv1")
+    apply_fn, params = zoo.load_model("superpoint_pretrained")
     imgs = np.stack([preprocess_image_np(im, h, w) for im in raw])
     f = jax.jit(lambda p, x: extract_keypoints(
         apply_fn(p, x)["output_det"], apply_fn(p, x)["output_desc"],
@@ -81,7 +81,7 @@ def test_real_sequence_matching_corpus(sample_image_dir, h, w, min_kps,
 
 @pytest.mark.slow
 def test_real_sequence_golden_trajectory(sample_image_dir):
-    """Regression-LOCKED real-imagery trajectory (VERDICT r3 item 7): the
+    """Regression-LOCKED real-imagery trajectory: the
     21 relative poses of the fp32 pipeline on the real 22-frame forward
     sequence are pinned against a committed golden
     (tests/golden/real_sequence_rel_poses.npz, generated by this exact
@@ -95,7 +95,7 @@ def test_real_sequence_golden_trajectory(sample_image_dir):
     Reference methodology: §4.1's golden-comparison evaluation."""
     import os
 
-    from spsvo_tpu.pipeline import VisualOdometry
+    from spsvo.pipeline import VisualOdometry
 
     golden = np.load(os.path.join(os.path.dirname(__file__), "golden",
                                   "real_sequence_rel_poses.npz"))["rel_poses"]
@@ -104,7 +104,7 @@ def test_real_sequence_golden_trajectory(sample_image_dir):
                   [0, 718.856, 185.2157, 0.0],
                   [0, 0, 1.0, 0.0]])
     P_r = P.copy(); P_r[0, 3] = -386.1448
-    vo = VisualOdometry(VOConfig(model_name_prefix="sp_mbv1",
+    vo = VisualOdometry(VOConfig(model_name_prefix="superpoint_pretrained",
                                  max_keypoints=512))
     rel = [vo.process(img, np.roll(img, -8, axis=1), P, P_r)[0]
            for img in raw]
@@ -125,14 +125,14 @@ def test_real_sequence_full_pipeline(sample_image_dir):
     keep the solver healthy — PnP success, inliers well above the guard
     thresholds — exercising NMS/descriptors/chain/RANSAC/LM on real
     imagery end-to-end, not just the matching stage."""
-    from spsvo_tpu.pipeline import VisualOdometry
+    from spsvo.pipeline import VisualOdometry
 
     raw = _load_raw(sample_image_dir)
     P = np.array([[718.856, 0, 607.1928, 0.0],
                   [0, 718.856, 185.2157, 0.0],
                   [0, 0, 1.0, 0.0]])
     P_r = P.copy(); P_r[0, 3] = -386.1448
-    vo = VisualOdometry(VOConfig(model_name_prefix="sp_mbv1",
+    vo = VisualOdometry(VOConfig(model_name_prefix="superpoint_pretrained",
                                  max_keypoints=512))
     inliers, success = [], []
     for img in raw:
@@ -152,14 +152,14 @@ def test_real_sequence_landmark_fusion(sample_image_dir):
     tracks must form and persist (real texture, real inter-frame motion —
     not just the ray-cast scenes the accuracy matrix uses), the solver must
     stay healthy, and fused landmarks must not reduce inlier counts."""
-    from spsvo_tpu.pipeline import VisualOdometry
+    from spsvo.pipeline import VisualOdometry
 
     raw = _load_raw(sample_image_dir)
     P = np.array([[718.856, 0, 607.1928, 0.0],
                   [0, 718.856, 185.2157, 0.0],
                   [0, 0, 1.0, 0.0]])
     P_r = P.copy(); P_r[0, 3] = -386.1448
-    cfg = VOConfig(model_name_prefix="sp_mbv1", max_keypoints=512,
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained", max_keypoints=512,
                    landmark_fusion=True)
     vo = VisualOdometry(cfg)
     inliers, success, tracks, track_len = [], [], [], []
@@ -187,9 +187,9 @@ def test_real_sequence_landmark_fusion(sample_image_dir):
 def test_real_sequence_orb_matching_corpus(sample_image_dir):
     """Device-ORB edition of the matching-corpus regression: the 21 real
     consecutive pairs must match richly and the matched flow must carry the
-    forward-motion radial-expansion signature — evidence the TPU-native
+    forward-motion radial-expansion signature — evidence the device-resident
     classic front end tracks the REAL camera motion, like the CNN one."""
-    from spsvo_tpu.ops.orb import orb_frontend_batch
+    from spsvo.ops.orb import orb_frontend_batch
 
     raw = _load_raw(sample_image_dir)
     cfg = VOConfig(is_classic=True, device_classic=True,

@@ -3,7 +3,7 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation
 
-from spsvo_tpu.geometry import se3
+from spsvo.geometry import se3
 
 
 def random_quats(rng, n):

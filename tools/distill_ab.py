@@ -1,6 +1,6 @@
 """Short-schedule A/B of distillation recipe knobs on one family.
 
-Before spending TPU-hours on full 12k-step runs for all three distilled
+Before spending device-hours on full 12k-step runs for all three distilled
 families, this runs a short (default 3000-step) multi-resolution schedule
 for each candidate knob setting on ONE family and reports the best
 held-out min(precision, recall) checkpoint per arm — the selection metric
@@ -20,8 +20,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import spsvo_tpu  # noqa: E402  (pins matmul precision, XLA cache)
-from spsvo_tpu import distill as D  # noqa: E402
+import spsvo  # noqa: E402  (pins matmul precision, XLA cache)
+from spsvo import distill as D  # noqa: E402
 
 ARMS = {
     # round-3 shipped recipe (peak_weight 4, no clean samples, T=1)

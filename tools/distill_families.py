@@ -1,4 +1,4 @@
-"""Distill real weights for the LFS-stripped model families on the TPU.
+"""Distill real weights for the LFS-stripped model families on the device.
 
 Produces weights/{superpoint_pretrained,sp_sparse,sp_resnet18}.npz from the
 imported sp_mbv1 teacher plus a training history JSON per family under
@@ -19,9 +19,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import spsvo_tpu  # noqa: E402  (pins matmul precision, XLA cache)
-from spsvo_tpu import distill as D  # noqa: E402
-from spsvo_tpu.models import zoo  # noqa: E402
+import spsvo  # noqa: E402  (pins matmul precision, XLA cache)
+from spsvo import distill as D  # noqa: E402
+from spsvo.models import zoo  # noqa: E402
 
 FAMILIES = ("superpoint_pretrained", "sp_sparse", "sp_resnet18")
 
@@ -31,8 +31,8 @@ def validate(prefix: str) -> dict:
     frame through the production postprocess."""
     import cv2
 
-    from spsvo_tpu.config import VOConfig
-    from spsvo_tpu.pipeline import VisualOdometry
+    from spsvo.config import VOConfig
+    from spsvo.pipeline import VisualOdometry
     img = cv2.imread("/root/reference/src/odml_visual_odometry/"
                      "sample_images/0000000000.png", cv2.IMREAD_GRAYSCALE)
     P = np.array([[718.856, 0, 607.1928, 0.0],

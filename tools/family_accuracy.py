@@ -7,9 +7,9 @@ flagship 120x392 resolution through the online hybrid, one row per family:
 final drift %, ATE, RPE, mean inliers/keypoints, PnP success rate. The
 reference's own study compares exactly this (per-backbone trajectory
 accuracy, report §4.2); the distilled families must not invert the
-imported families' ordering (VERDICT r2 item 3).
+imported families' ordering.
 
-Run on the TPU (minutes; CPU works too but is slow):
+Run on the device (minutes; CPU works too but is slow):
     python tools/family_accuracy.py [--families sp_mbv1,sp_resnet18]
 """
 
@@ -25,7 +25,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import spsvo_tpu  # noqa: E402  (pins matmul precision, XLA cache)
+import spsvo  # noqa: E402  (pins matmul precision, XLA cache)
 
 FAMILIES = ("sp_mbv1", "sp_mbv2", "sp_squeeze",
             "superpoint_pretrained", "sp_sparse", "sp_resnet18")
@@ -35,11 +35,12 @@ IMPORTED = ("sp_mbv1", "sp_mbv2", "sp_squeeze")
 def load_corpus(n_frames: int = 80, h: int = 120, w: int = 392):
     """80-frame straight-corridor corpus, cached (ray casting ~1-2 s/frame
     on this 1-core host; seconds thereafter)."""
-    from spsvo_tpu.eval.synthetic import synthetic_corridor
-    from spsvo_tpu.ops.image import (preprocess_image_np,
+    from spsvo.eval.synthetic import synthetic_corridor
+    from spsvo.ops.image import (preprocess_image_np,
                                      update_projection_matrix_np)
 
-    cache_dir = os.path.expanduser("~/.cache/spsvo_tpu")
+    from spsvo import local_cache_dir
+    cache_dir = local_cache_dir()
     os.makedirs(cache_dir, exist_ok=True)
     cache = os.path.join(cache_dir, "subpix_corridor80_v2.npz")
     if os.path.exists(cache):
@@ -69,10 +70,10 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from spsvo_tpu.eval.synthetic import score_trajectory
-    from spsvo_tpu.models import zoo
-    from spsvo_tpu.parallel.sharding import build_online_hybrid
-    from spsvo_tpu.presets import flagship_tpu
+    from spsvo.eval.synthetic import score_trajectory
+    from spsvo.models import zoo
+    from spsvo.parallel.sharding import build_online_hybrid
+    from spsvo.presets import flagship
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out_path = args.out or os.path.join(repo, "docs",
@@ -86,7 +87,7 @@ def main() -> None:
     args_tail = (jnp.asarray(imgs), jnp.asarray(pl, jnp.float32),
                  jnp.asarray(pr, jnp.float32), jax.random.PRNGKey(0))
     for fam in args.families.split(","):
-        cfg = dataclasses.replace(flagship_tpu(), model_name_prefix=fam,
+        cfg = dataclasses.replace(flagship(), model_name_prefix=fam,
                                   conf_thresh=0.005)
         apply_fn, params = zoo.load_model(fam)
         world, diag = build_online_hybrid(apply_fn, cfg)(params, *args_tail)

@@ -2,7 +2,7 @@
 
 Exercises the SuperPoint-paper training losses (`training.total_loss`:
 65-way detector CE + hinge descriptor loss between a frame and its
-homography warp) end-to-end on real imagery (VERDICT r2 weak #6 / item #9):
+homography warp) end-to-end on real imagery:
 pseudo-labels come from the imported sp_mbv1 teacher's detections
 (homographic adaptation, the paper's self-labelling recipe), the student is
 a distilled family checkpoint, and the demonstration is loss DESCENT plus
@@ -28,19 +28,19 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import spsvo_tpu  # noqa: E402  (pins matmul precision, XLA cache)
+import spsvo  # noqa: E402  (pins matmul precision, XLA cache)
 
 
 def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from spsvo_tpu import distill as D
-    from spsvo_tpu.io.homography import make_homographic_batch
-    from spsvo_tpu.models import zoo
-    from spsvo_tpu.ops.image import preprocess_image_np
-    from spsvo_tpu.ops.postprocess import extract_keypoints
-    from spsvo_tpu.training import init_train_state, train_step
+    from spsvo import distill as D
+    from spsvo.io.homography import make_homographic_batch
+    from spsvo.models import zoo
+    from spsvo.ops.image import preprocess_image_np
+    from spsvo.ops.postprocess import extract_keypoints
+    from spsvo.training import init_train_state, train_step
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--prefix", default="superpoint_pretrained")

@@ -1,4 +1,4 @@
-"""Regenerate docs/ demo artifacts from a real TPU run.
+"""Regenerate docs/ demo artifacts from a device run.
 
 Uses the reference's default laptop config (sp_resnet18 @ 360x1176 — now on
 distilled weights) over the bundled KITTI frames for the match/inlier
@@ -16,10 +16,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import spsvo_tpu  # noqa: E402
-from spsvo_tpu import presets, viz  # noqa: E402
-from spsvo_tpu.eval.synthetic import synthetic_drive  # noqa: E402
-from spsvo_tpu.pipeline import VisualOdometry  # noqa: E402
+import spsvo  # noqa: E402
+from spsvo import presets, viz  # noqa: E402
+from spsvo.eval.synthetic import synthetic_drive  # noqa: E402
+from spsvo.pipeline import VisualOdometry  # noqa: E402
 
 DOCS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "docs")
@@ -75,7 +75,7 @@ def main() -> None:
               for _ in range(15)]
     frames, poses, P_l2, P_r2 = synthetic_drive(rng, n_frames=16,
                                                 twists=twists)
-    cfg2 = presets.flagship_tpu() if hasattr(presets, "flagship_tpu") else cfg
+    cfg2 = presets.flagship() if hasattr(presets, "flagship") else cfg
     vo2 = VisualOdometry(cfg2)
     for il, ir in frames:
         vo2.process(il, ir, P_l2, P_r2)

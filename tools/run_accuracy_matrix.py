@@ -1,4 +1,4 @@
-"""Generator for docs/accuracy_matrix.json (VERDICT r4 item 2).
+"""Generator for docs/accuracy_matrix.json.
 
 The cross-scene precision/mode accuracy matrix: BOTH synthetic scene
 families (S-curve corridor + urban block world) x >=3 drives x 3 PRNG keys
@@ -10,7 +10,7 @@ x the full setting ladder:
   * int8        — static-calibrated int8 trunk
   * fp32_mbf16  — fp32 trunk with cfg.matcher_bf16 (bf16 descriptor
                   matmuls, fp32 accumulation) — the matcher-precision A/B
-                  (VERDICT r4 item 9)
+                 
   * landmark    — fp32 + landmark fusion (the beyond-reference accuracy
                   mode, docs/landmark_matrix.json)
 
@@ -20,7 +20,7 @@ the drift ladder and the speed ladder live in one artifact.
 
 The reference's counterpart is its accuracy-vs-config study (report §4.2,
 KITTI translation%/rotation scored per config); scene-family cross-checks
-replace KITTI (no data in-container, SURVEY §6 note) per VERDICT r3 item 4.
+replace KITTI (no data in-container, SURVEY §6 note) per .
 
 Usage:  python tools/run_accuracy_matrix.py [--frames 96] [--drives 3]
           [--keys 3] [--scenes corridor,blocks] [--settings fp32,bf16,...]
@@ -58,16 +58,16 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    import spsvo_tpu  # noqa: F401
+    import spsvo  # noqa: F401
     import bench
-    from spsvo_tpu.config import Precision, VOConfig
-    from spsvo_tpu.eval.synthetic import score_trajectory
-    from spsvo_tpu.models import zoo
-    from spsvo_tpu.parallel.sharding import build_online_hybrid
+    from spsvo.config import Precision, VOConfig
+    from spsvo.eval.synthetic import score_trajectory
+    from spsvo.models import zoo
+    from spsvo.parallel.sharding import build_online_hybrid
 
-    base = VOConfig(model_name_prefix="sp_mbv1", image_height=120,
+    base = VOConfig(model_name_prefix="superpoint_pretrained", image_height=120,
                     image_width=392, max_keypoints=512,
-                    ransac_iterations=256, use_pallas_matcher=True,
+                    ransac_iterations=256,
                     ransac_chunk=0, lm_unroll=6, solve_slots=128,
                     use_pallas_solver=True)
     apply32, params32 = zoo.load_model(base.model_name_prefix)
@@ -100,7 +100,7 @@ def main():
         # composed candidates for the flagship default: the matrix showed
         # bf16 both faster (1.53x) and no less accurate than fp32, and
         # landmark fusion the best accuracy mode on BOTH scene families —
-        # measure the compositions before flipping presets.flagship_tpu
+        # measure the compositions before flipping presets.flagship
         "bf16_landmark": (dataclasses.replace(
             base, precision=Precision.BF16, landmark_fusion=True),
             apply16, params16),

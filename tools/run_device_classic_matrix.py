@@ -1,4 +1,4 @@
-"""Generator for docs/device_classic_matrix.json (VERDICT r4 item 1b).
+"""Generator for docs/device_classic_matrix.json.
 
 Measures every device-resident classic front end (ops/orb.py: ORB, GFTT,
 BRISK) and the host cv2 ORB/ORB baseline on the SAME workload — the bench
@@ -46,9 +46,10 @@ def load_raw_drive(n_frames: int):
     """The bench corridor drive, kept RAW (uint8, 375x1242) so host rows
     feed cv2 the same pixels bench._load_frames feeds the device rows
     after preprocessing. Same seed/twists as bench.py:_load_frames."""
-    from spsvo_tpu.eval.synthetic import synthetic_corridor
+    from spsvo.eval.synthetic import synthetic_corridor
 
-    cache_dir = os.path.expanduser("~/.cache/spsvo_tpu")
+    from spsvo import local_cache_dir
+    cache_dir = local_cache_dir()
     os.makedirs(cache_dir, exist_ok=True)
     cache = os.path.join(cache_dir, f"dcm_raw_v1_{n_frames}.npz")
     if os.path.exists(cache):
@@ -68,7 +69,7 @@ def load_raw_drive(n_frames: int):
 
 
 def _preprocess(frames_raw, P_l, P_r, h, w):
-    from spsvo_tpu.ops.image import (preprocess_image_np,
+    from spsvo.ops.image import (preprocess_image_np,
                                      update_projection_matrix_np)
     h0, w0 = frames_raw[0][0].shape
     P_l2 = update_projection_matrix_np(P_l, h0, w0, h, w).astype(np.float32)
@@ -81,7 +82,7 @@ def _preprocess(frames_raw, P_l, P_r, h, w):
 
 
 def _score(world, gt):
-    from spsvo_tpu.eval.synthetic import score_trajectory
+    from spsvo.eval.synthetic import score_trajectory
     world = np.asarray(world)
     n = min(len(world), len(gt))
     return score_trajectory([world[i] for i in range(n)],
@@ -126,11 +127,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    import spsvo_tpu  # noqa: F401  (fp32 matmuls + persistent XLA cache)
+    import spsvo  # noqa: F401  (fp32 matmuls + persistent XLA cache)
     import bench
-    from spsvo_tpu.config import DescriptorType, DetectorType, VOConfig
-    from spsvo_tpu.eval import harness
-    from spsvo_tpu.parallel.sharding import build_orb_hybrid
+    from spsvo.config import DescriptorType, DetectorType, VOConfig
+    from spsvo.eval import harness
+    from spsvo.parallel.sharding import build_orb_hybrid
 
     n_frames = args.frames
     if args.workload == "samples":
@@ -141,9 +142,9 @@ def main():
         suffix = ""
     key = jax.random.PRNGKey(0)
 
-    base = VOConfig(model_name_prefix="sp_mbv1", image_height=120,
+    base = VOConfig(model_name_prefix="superpoint_pretrained", image_height=120,
                     image_width=392, max_keypoints=512,
-                    ransac_iterations=256, use_pallas_matcher=True,
+                    ransac_iterations=256,
                     ransac_chunk=0, lm_unroll=6, solve_slots=128,
                     use_pallas_solver=True)
     device_variants = {

@@ -1,9 +1,9 @@
-"""Landmark-fusion accuracy matrix on the real TPU.
+"""Landmark-fusion accuracy matrix on the device.
 
 Multi-drive x multi-key x multi-SCENE evidence for the landmark-fusion mode
 (the single-drive drift spread of EVERY precision is 0.5-4.6%,
 BENCH_NOTES.md — single-drive comparisons at this scale are noise, the
-matrix is the evidence; and VERDICT r3 item 4: every accuracy gate must be
+matrix is the evidence; and every accuracy gate must be
 validated on two independent scene families, after corridor-only tuning
 leaked that scene's failure modes into conclusions twice). Runs the
 120x392 online-hybrid on S-curve corridor AND urban block-world drives
@@ -43,11 +43,12 @@ def load_drive(seed: int, n_frames: int, cfg, scene: str = "corridor"):
     """S-curve drive in the chosen scene family at the config resolution,
     disk-cached. `scene`: "corridor" (infinite textured walls) or "blocks"
     (urban block world with occlusions and sky)."""
-    from spsvo_tpu.eval.synthetic import synthetic_blocks, synthetic_corridor
-    from spsvo_tpu.ops.image import (preprocess_image_np,
+    from spsvo.eval.synthetic import synthetic_blocks, synthetic_corridor
+    from spsvo.ops.image import (preprocess_image_np,
                                      update_projection_matrix_np)
 
-    cache_dir = os.path.expanduser("~/.cache/spsvo_tpu")
+    from spsvo import local_cache_dir
+    cache_dir = local_cache_dir()
     os.makedirs(cache_dir, exist_ok=True)
     cache = os.path.join(
         cache_dir, f"lmx_{scene}_{seed}_{n_frames}_"
@@ -99,15 +100,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    import spsvo_tpu  # noqa: F401  (precision + XLA cache)
-    from spsvo_tpu.config import VOConfig
-    from spsvo_tpu.eval.synthetic import score_trajectory
-    from spsvo_tpu.models import zoo
-    from spsvo_tpu.parallel.sharding import build_online_hybrid
+    import spsvo  # noqa: F401  (precision + XLA cache)
+    from spsvo.config import VOConfig
+    from spsvo.eval.synthetic import score_trajectory
+    from spsvo.models import zoo
+    from spsvo.parallel.sharding import build_online_hybrid
 
-    base = VOConfig(model_name_prefix="sp_mbv1", image_height=120,
+    base = VOConfig(model_name_prefix="superpoint_pretrained", image_height=120,
                     image_width=392, max_keypoints=512,
-                    ransac_iterations=256, use_pallas_matcher=True,
+                    ransac_iterations=256,
                     ransac_chunk=0, lm_unroll=6, solve_slots=128,
                     use_pallas_solver=True)
     settings = {
@@ -179,7 +180,7 @@ def main():
             "n_runs": len(rows),
         }
         # per-scene breakdown: a mode must win on BOTH families to be
-        # promoted (VERDICT r3 item 4 gate)
+        # promoted
         for scene in {r["scene"] for r in rows}:
             sd = [r["drift_pct"] for r in rows if r["scene"] == scene]
             sa = [r["ate_m"] for r in rows if r["scene"] == scene]
